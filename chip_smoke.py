@@ -19,7 +19,9 @@ Phases, each printing its result on its own line:
      every kernel of the path must have launched in the timed run, and the
      records of 32 of those reads plus 12 fuzz-style reads must be
      byte-identical with the port's host oracle
-     (pipeline.core.tidehunter_core);
+     (pipeline.core.tidehunter_core); then the timed run once more under
+     torch.profiler: each kernel's device ms and launches on the slice and
+     the device busy share;
   5. the full-width rung: regions that skip or escalate past the band
      window must equal the host mirror banded_profile_consensus.
 The line before the last is a JSON object with every kernel's launches,
@@ -49,24 +51,36 @@ import torch  # noqa: E402
 
 TOL = 0   # every kernel output is an integer, compared exactly
 # Shapes the default path gives each kernel (synthetic R2C2 workload):
-# aveMatch at (512, 512), oversize partition windows with t_left, boundary
-# extensions at (512, 256) and (512, 640), MSA regions at T=640 on every
-# band rung and full width; then the largest buckets, which long-period
-# reads reach: wavefront rows past shared memory (T > 4096 keeps them in a
-# global scratch) and the 4096 MSA bucket banded and at full width.
-WF_CASES = [("iden_only", 2048, 512, 512), ("tleft", 512, 256, 1024),
+# aveMatch at (512, 512) (a slice launch carries ~4100 problems), oversize
+# partition windows with t_left, boundary extensions at (512, 256) and
+# (512, 640), MSA regions at T=640 on every band rung and full width; then
+# the largest buckets, which long-period reads reach: wavefront rows past
+# shared memory and the 4096 MSA bucket banded and at full width.
+# wf_global's routes by target bucket T: one column tile of 32 x 4 (T <=
+# 128), 32 x 8 (T <= 256) or 32 x 16 (T <= 512) columns; wider targets in
+# tiles of 512 with the edge column in shared memory (T=1024, LQ=256) or
+# in a global scratch (6144, 8192).  profile_dp's: the warp kernel on the
+# W=128/256/512 rungs of T=640, the first version at full width and in the
+# 4096 bucket.
+WF_CASES = [("iden_only", 2048, 512, 512), ("iden_only", 4096, 512, 512),
+            ("iden_only", 256, 128, 128), ("tleft", 256, 256, 200),
+            ("tleft", 512, 256, 1024),
             ("ext", 1024, 512, 256), ("ext", 1024, 512, 640),
             ("iden_only", 8, 6144, 6144), ("tleft", 8, 8192, 8192),
             ("ext", 8, 4096, 8192)]
 MSA_CASES = [(640, 128, 512, 450), (640, 256, 128, 450),
              (640, 512, 64, 450), (640, None, 64, 450),
              (4096, 512, 8, 3000), (4096, None, 2, 3000)]
-MAIN_SHAPES = {"wf_global": "iden_only (512,512)", "wf_ext": "ext (512,640)",
+MAIN_SHAPES = {"wf_global": "iden_only (512,512) B=4096",
+               "wf_ext": "ext (512,640)",
                "profile_dp": "T=640 W=128", "profile_bt": "T=640 W=128"}
 # the probe's comparison shapes: its defaults and an odd tile
 PROBE_CASES = [(512, 128), (200, 7)]
 SLICE_READS = 1024
 SLICE_KERNELS = ("wf_global", "wf_ext", "profile_dp", "profile_bt")
+# kernel names in a trace -> the wrapper that launches them
+TRACE_NAMES = {"wf_global_kernel": "wf_global", "wf_ext_kernel": "wf_ext",
+               "profile_dp": "profile_dp", "profile_bt": "profile_bt"}
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
 # int32 results per clock per SM: 64 on the INT pipe (CUDA C++ Programming
@@ -297,18 +311,27 @@ def phase_probe(checks, dev) -> int:
             print(f"check wf_dtype_probe {name} T={T} BT={BT}: chain of "
                   f"{P.CHAIN} max_abs_err={err}", flush=True)
     T, BT = PROBE_CASES[0]
-    tb = P.tile("int32", T, BT, dev)
-    plain_ms = cuda_ms(lambda: P.probe_plain(tb, *P.VARIANTS["int32"]), 1)
+    plain_ms = {}
+    for name, (dt, iota_dt) in P.VARIANTS.items():
+        tb = P.tile(name, T, BT, dev)
+        plain_ms[name] = cuda_ms(lambda: P.probe_plain(tb, dt, iota_dt), 1)
 
     K.reset_launches()
     ms = P.time_variants(T, BT)
     launches = K.WF_DTYPE_PROBE.launches
     for line in P.report(T, BT, ms):
         print(f"probe T={T} BT={BT}: {line}", flush=True)
-    # the int32 variant's work: tb read and out written once, 4 B a lane
+    # every variant runs the same source ops a cell; tb is read and out
+    # written once, at the state type's width
+    ops = P.OPS_PER_CELL * BT * T * P.n_rows(T)
+    for name, (dt, _) in P.VARIANTS.items():
+        bound_ms, by = checks.card.bound(ops, 2 * BT * T * dt.itemsize)
+        print(f"probe variant {name} T={T} BT={BT}: ms={ms[name]:.4f} "
+              f"plain_ms={plain_ms[name]:.2f} bound_ms={bound_ms:.4f} "
+              f"({by}) share of bound {bound_ms / ms[name]:.4f}",
+              flush=True)
     checks.record("wf_dtype_probe", f"int32 T={T} BT={BT}", worst,
-                  ms["int32"], plain_ms,
-                  P.OPS_PER_CELL * BT * T * P.n_rows(T), 2 * BT * T * 4,
+                  ms["int32"], plain_ms["int32"], ops, 2 * BT * T * 4,
                   main=True)
     checks.rows["wf_dtype_probe"]["variants_ms"] = ms
     return launches
@@ -384,6 +407,8 @@ def phase_slice(tmp, dev):
     idle = [k for k, v in launches.items() if v <= 0]
     if idle:
         raise AssertionError(f"kernels not launched by the slice: {idle}")
+    trace_slice(lambda: runner.run(fa, mtp, out=io.StringIO(),
+                                   process_chunk=engine), dev)
     if metrics.reads != n_reads or metrics.cons_records < n_reads // 2:
         raise AssertionError(f"slice produced {metrics.cons_records} records"
                              f" for {metrics.reads} reads")
@@ -404,6 +429,50 @@ def phase_slice(tmp, dev):
           f"byte-identical with tidehunter_core ({oracle_s:.1f} s host)",
           flush=True)
     return launches
+
+
+def trace_slice(run, dev):
+    """run() once more under torch.profiler: device ms and launches of
+    every kernel by name and of each slice kernel, and the device busy
+    share (the union of kernel and copy intervals over the wall)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        sync(dev)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans, by_name = [], {}
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        spans.append((ev.time_range.start, ev.time_range.end))
+        name = ev.name.replace("(anonymous namespace)::", "")
+        name = name.split("(")[0].removeprefix("void ")
+        ms, n = by_name.get(name, (0.0, 0))
+        by_name[name] = (ms + (spans[-1][1] - spans[-1][0]) / 1e3, n + 1)
+    busy_us, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    per_kernel = {k: [0.0, 0] for k in SLICE_KERNELS}
+    for name, (ms, n) in sorted(by_name.items(), key=lambda x: -x[1][0]):
+        print(f"slice trace: {name}: {ms:.3f} ms in {n} launches",
+              flush=True)
+        key = next((v for k, v in TRACE_NAMES.items() if k in name), None)
+        if key:
+            per_kernel[key][0] += ms
+            per_kernel[key][1] += n
+    busy_ms = busy_us / 1e3
+    print("slice trace summary: " + json.dumps({
+        "wall_ms": round(wall_ms, 3), "device_busy_ms": round(busy_ms, 3),
+        "device_busy_share": round(busy_ms / wall_ms, 5),
+        "device_ms_all": round(sum(ms for ms, _ in by_name.values()), 3),
+        "kernels": {k: {"device_ms": round(ms, 3), "launches": n}
+                    for k, (ms, n) in per_kernel.items()}}), flush=True)
 
 
 def phase_full_width(dev):

@@ -3,11 +3,12 @@
 Counterpart of ``tidehunter_tpu/ops/wavefront.py``: the same
 ``global_batch`` and ``ext_batch`` outputs, bit-identical with the NumPy
 oracle ``ops/ksw2.py``.  On a CUDA tensor each call launches
-one hand-written kernel (``csrc/wavefront.cu``: ``wf_global``, ``wf_ext``);
-on a CPU tensor it runs the plain PyTorch version in this module, a loop
-over anti-diagonals of ``[B, T]`` tensor ops that mirrors the kernel row
-for row.  A launch takes the rows it is given: there is no batch ladder and
-no padding beyond the caller's ``[B, LQ] x [B, T]`` rectangle.
+one hand-written kernel (``csrc/wavefront.cu``: ``wf_global``, one warp
+per problem walking column strips; ``wf_ext``, one CTA per problem over
+anti-diagonals); on a CPU tensor it runs the plain PyTorch version in
+this module, a loop over anti-diagonals of ``[B, T]`` tensor ops.  A
+launch takes the rows it is given: there is no batch ladder and no
+padding beyond the caller's ``[B, LQ] x [B, T]`` rectangle.
 
 Inputs: ``q [B, LQ]`` and ``t [B, T]`` uint8 codes 0..4 (4 = N), ``qlen``,
 ``tlen`` (and ``qle``) ``[B]`` int32 with ``1 <= qlen <= LQ`` and
@@ -33,7 +34,11 @@ MAX_T = 8192                  # the tl + 1 field holds targets up to this
 # Shared memory a CTA may take on Hopper; rows that do not fit go to a
 # global scratch instead (csrc/wavefront.cu).
 SMEM_LIMIT = 227 * 1024
-GLOBAL_ROWS, EXT_ROWS = 12, 8
+EXT_ROWS = 8
+# wf_global: problems (warps) per CTA and the widest single column tile
+# (32 lanes x 16 columns); wider targets carry an int4 edge column of LQ
+# rows per problem from tile to tile (csrc/wavefront.cu: WARPS, C).
+GLOBAL_WARPS, GLOBAL_TILE = 4, 512
 
 
 def _check(q, qlen, t, tlen, qle=None):
@@ -54,12 +59,20 @@ def _check(q, qlen, t, tlen, qle=None):
         raise ValueError(f"inputs on several devices: {devs}")
 
 
-def _scratch(rows: int, B: int, T: int, device):
-    """None when the kernel's rows fit in shared memory, else a global
-    buffer of B * rows * T ints."""
-    if rows * T * 4 <= SMEM_LIMIT:
+def _ext_scratch(B: int, T: int, device):
+    """None when wf_ext's rows fit in shared memory, else a global buffer
+    of B * EXT_ROWS * T ints."""
+    if EXT_ROWS * T * 4 <= SMEM_LIMIT:
         return None
-    return torch.empty(B * rows * T, dtype=torch.int32, device=device)
+    return torch.empty(B * EXT_ROWS * T, dtype=torch.int32, device=device)
+
+
+def _edge_scratch(B: int, LQ: int, T: int, device):
+    """None when wf_global needs no edge column (one tile) or a CTA's
+    GLOBAL_WARPS of them fit in shared memory, else B * LQ int4."""
+    if T <= GLOBAL_TILE or GLOBAL_WARPS * LQ * 16 <= SMEM_LIMIT:
+        return None
+    return torch.empty(B * LQ * 4, dtype=torch.int32, device=device)
 
 
 def _ptr(x) -> int:
@@ -83,7 +96,7 @@ def global_batch(q, qlen, t, tlen, qle, scores=DEFAULT_SCORES,
     T = t.shape[1]
     iden = torch.empty(B, dtype=torch.int32, device=q.device)
     tleft = torch.empty(B, dtype=torch.int32, device=q.device)
-    scratch = _scratch(GLOBAL_ROWS, B, T, q.device)
+    scratch = _edge_scratch(B, LQ, T, q.device)
     m, x, go, ge = (int(s) for s in scores)
     K.WF_GLOBAL(q.data_ptr(), LQ, t.data_ptr(), T, qlen.data_ptr(),
                 tlen.data_ptr(), qle.data_ptr(), B, m, x, go, ge,
@@ -106,7 +119,7 @@ def ext_batch(q, qlen, t, tlen, scores=DEFAULT_SCORES):
         besth = torch.empty((B, T), dtype=torch.int32, device=q.device)
         bestr = torch.empty((B, T), dtype=torch.int32, device=q.device)
         score = torch.empty(B, dtype=torch.int32, device=q.device)
-        scratch = _scratch(EXT_ROWS, B, T, q.device)
+        scratch = _ext_scratch(B, T, q.device)
         m, x, go, ge = (int(s) for s in scores)
         K.WF_EXT(q.data_ptr(), LQ, t.data_ptr(), T, qlen.data_ptr(),
                  tlen.data_ptr(), B, m, x, go, ge, besth.data_ptr(),
