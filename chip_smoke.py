@@ -1,6 +1,8 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py
+    # two commits' kernels on one card, in turns (A, B, B, A)
+    python3 chip_smoke.py --kernels wf_ext,profile_bt --port OTHER_CHECKOUT
 
 Phases, each printing its result on its own line:
   1. card and build: the card's name and power limit (nvidia-smi), the
@@ -9,7 +11,8 @@ Phases, each printing its result on its own line:
      nvcc for sm_90a (one nvcc per source, all started together);
   2. every kernel of the consensus path against its plain PyTorch version
      on the card, exact integer equality, at the shapes the default path
-     gives it, with both times (CUDA events);
+     gives it, with both times (CUDA events, the kernel's runs queued
+     behind a device sleep); wf_ext also at each lanes-a-thread choice;
   3. the wavefront dtype probe: wf_dtype_probe against probe_plain, exact,
      in all four variants at (T=512, BT=128) and (T=200, BT=7), then the
      probe's own timing table at its defaults;
@@ -39,6 +42,7 @@ import sys
 for _name in ("jax", "jaxlib", "tidehunter_tpu", "bench", "__graft_entry__"):
     sys.modules[_name] = None    # any import of these now fails loudly
 
+import argparse  # noqa: E402
 import io  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
@@ -53,34 +57,51 @@ TOL = 0   # every kernel output is an integer, compared exactly
 # Shapes the default path gives each kernel (synthetic R2C2 workload):
 # aveMatch at (512, 512) (a slice launch carries ~4100 problems), oversize
 # partition windows with t_left, boundary extensions at (512, 256) and
-# (512, 640), MSA regions at T=640 on every band rung and full width; then
-# the largest buckets, which long-period reads reach: wavefront rows past
-# shared memory and the 4096 MSA bucket banded and at full width.
+# (512, 640) (a slice launch carries 1-11 problems; B=1024 for the issue
+# rate), MSA regions at T=640 on every band rung and full width, and at
+# B=1 and 8 on the slice's rung; then the largest buckets, which
+# long-period reads reach: wavefront rows past a 512 target and the 4096
+# MSA bucket banded and at full width.
 # wf_global's routes by target bucket T: one column tile of 32 x 4 (T <=
 # 128), 32 x 8 (T <= 256) or 32 x 16 (T <= 512) columns; wider targets in
 # tiles of 512 with the edge column in shared memory (T=1024, LQ=256) or
-# in a global scratch (6144, 8192).  profile_dp's: the warp kernel on the
-# W=128/256/512 rungs of T=640, the first version at full width and in the
-# 4096 bucket.
+# in a global scratch (6144, 8192).  wf_ext's lanes a thread by target
+# bucket and launch size (ops/wavefront.EXT_LANES): 1 at B <= the SM
+# count and 2 above it up to T=1024, 4 at 4096, 16 at 8192.
+# profile_dp's: the warp kernel on the W=128/256/512 rungs of T=640, the
+# first version at full width and in the 4096 bucket.  profile_bt has one
+# kernel for every rung: whole band rows or 128-lane windows a tile.
 WF_CASES = [("iden_only", 2048, 512, 512), ("iden_only", 4096, 512, 512),
             ("iden_only", 256, 128, 128), ("tleft", 256, 256, 200),
             ("tleft", 512, 256, 1024),
-            ("ext", 1024, 512, 256), ("ext", 1024, 512, 640),
+            ("ext", 1, 512, 640), ("ext", 4, 512, 640), ("ext", 11, 512, 640),
+            ("ext", 1024, 512, 640), ("ext", 1, 512, 256),
+            ("ext", 4, 512, 256), ("ext", 11, 512, 256),
+            ("ext", 1024, 512, 256),
             ("iden_only", 8, 6144, 6144), ("tleft", 8, 8192, 8192),
-            ("ext", 8, 4096, 8192)]
-MSA_CASES = [(640, 128, 512, 450), (640, 256, 128, 450),
-             (640, 512, 64, 450), (640, None, 64, 450),
-             (4096, 512, 8, 3000), (4096, None, 2, 3000)]
+            ("ext", 8, 512, 4096), ("ext", 8, 4096, 8192)]
+MSA_CASES = [(640, 128, 512, 450), (640, 128, 8, 450), (640, 128, 1, 450),
+             (640, 256, 128, 450), (640, 512, 64, 450),
+             (640, None, 64, 450), (4096, 512, 8, 3000),
+             (4096, None, 2, 3000)]
+# the check whose numbers stand for each kernel in the summary line: the
+# largest launch shape of the slice (for wf_ext the route of its launches
+# of more than one problem an SM, which hold most of its slice time)
 MAIN_SHAPES = {"wf_global": "iden_only (512,512) B=4096",
-               "wf_ext": "ext (512,640)",
-               "profile_dp": "T=640 W=128", "profile_bt": "T=640 W=128"}
+               "wf_ext": "ext (512,640) B=1024",
+               "profile_dp": "T=640 W=128 B=512",
+               "profile_bt": "T=640 W=128 B=512"}
+# wf_ext's lanes a thread timed at the slice's extension shapes, beside
+# the choice of ops/wavefront.ext_lanes
+EXT_LANES_SWEEP = ((512, 640), (512, 256))
+LANES = (1, 2, 4)
 # the probe's comparison shapes: its defaults and an odd tile
 PROBE_CASES = [(512, 128), (200, 7)]
 SLICE_READS = 1024
 SLICE_KERNELS = ("wf_global", "wf_ext", "profile_dp", "profile_bt")
 # kernel names in a trace -> the wrapper that launches them
 TRACE_NAMES = {"wf_global_kernel": "wf_global", "wf_ext_kernel": "wf_ext",
-               "profile_dp": "profile_dp", "profile_bt": "profile_bt"}
+               "profile_dp": "profile_dp", "profile_bt_warp": "profile_bt"}
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
 # int32 results per clock per SM: 64 on the INT pipe (CUDA C++ Programming
@@ -124,10 +145,13 @@ def sync(dev):
 
 
 def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of fn over reps runs (CUDA events)."""
+    """Mean device time of fn over reps runs (CUDA events).  The runs queue
+    behind a device sleep of ~10 ms, so that a kernel shorter than its
+    wrapper's host time is timed back to back, not at the host's rate."""
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    torch.cuda._sleep(20_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -154,14 +178,20 @@ def _nbytes(*xs) -> int:
 class Checks:
     """Kernel-vs-plain comparisons, one printed line each."""
 
-    def __init__(self, card: Card):
+    def __init__(self, card: Card, only=None):
         self.card = card
+        self.only = only          # kernels to check (None: all)
         self.rows = {}
+
+    def wants(self, kernel) -> bool:
+        return self.only is None or kernel in self.only
 
     def run(self, kernel, label, kern_fn, plain_fn, work, select=None,
             reps=5):
         """Compare, then time and bound (work() -> (integer ops, bytes));
         the main-path shape's numbers go to the summary."""
+        if not self.wants(kernel):
+            return
         got, want = kern_fn(), plain_fn()
         if select is not None:
             got, want = select(got), select(want)
@@ -171,7 +201,7 @@ class Checks:
         ms = cuda_ms(kern_fn, reps)
         plain_ms = cuda_ms(plain_fn, 1)
         self.record(kernel, label, err, ms, plain_ms, *work(),
-                    main=label.startswith(MAIN_SHAPES[kernel]))
+                    main=label == MAIN_SHAPES[kernel])
 
     def record(self, kernel, label, err, ms, plain_ms, ops, nbytes, main):
         bound_ms, by = self.card.bound(ops, nbytes)
@@ -216,7 +246,27 @@ def pair_batch(rng, B, LQ, LT, dev):
     return tuple(torch.as_tensor(a, device=dev) for a in (q, qlen, t, tlen))
 
 
-def phase_kernels(checks, dev):
+def sweep_lanes(checks, label, q, ql, t, tl, sc):
+    """wf_ext at each of LANES target lanes a thread: equal to the default
+    route's outputs, with its time."""
+    from tidehunter_tpu_torch.ops import wavefront as WF
+
+    B, LT = t.shape
+    chosen = WF.ext_lanes(LT, B, checks.card.sms)
+    want = WF.ext_batch(q, ql, t, tl, sc)
+    for L in LANES:
+        run = lambda L=L: WF.ext_batch(q, ql, t, tl, sc, lanes=L)  # noqa: E731
+        err = max_err(run(), want)
+        if err > TOL:
+            raise AssertionError(f"wf_ext {label} L={L}: max_abs_err {err}")
+        mark = " (ext_lanes' choice)" if L == chosen else ""
+        print(f"lanes wf_ext {label} L={L}: ms={cuda_ms(run, 5):.4f}{mark}",
+              flush=True)
+
+
+def phase_kernels(checks, dev, lanes=True):
+    """Every check of WF_CASES and MSA_CASES; with lanes, wf_ext's lanes a
+    thread timed at EXT_LANES_SWEEP."""
     from tidehunter_tpu_torch.ops import msa_device as MD
     from tidehunter_tpu_torch.ops import wavefront as WF
 
@@ -232,11 +282,14 @@ def phase_kernels(checks, dev):
                 besth, bestr, score = WF.ext_plain(q, ql, t, tl, sc)
                 return (*WF.ext_tie_order(besth, bestr, ql, tl), score)
 
-            # writes besth, bestr [B, T] and score [B], int32
+            # writes max, max_t, max_q and score [B], int32
             checks.run("wf_ext", label,
                        lambda: WF.ext_batch(q, ql, t, tl, sc), plain,
                        lambda: (OPS_PER_CELL["wf_ext"] * cells,
-                                _nbytes(q, ql, t, tl) + (2 * LT + 1) * B * 4))
+                                _nbytes(q, ql, t, tl) + 4 * B * 4))
+            if (lanes and checks.wants("wf_ext")
+                    and (LQ, LT) in EXT_LANES_SWEEP):
+                sweep_lanes(checks, label, q, ql, t, tl, sc)
             continue
         iden_only = kind == "iden_only"
         # t_left requests (oversize partition windows) span qle 0..qlen+1
@@ -526,11 +579,27 @@ KERNEL_META = {
 }
 
 
-def main() -> int:
+def parse_args(argv):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--port", metavar="DIR",
+                    help="import tidehunter_tpu_torch from DIR (the root of "
+                         "another checkout) instead of this one, to time two "
+                         "commits on one card in turns (A, B, B, A); no lanes "
+                         "sweep")
+    ap.add_argument("--kernels", metavar="NAMES",
+                    help="comma-separated kernels: run the build and only "
+                         "their checks (phase 2), then stop")
+    return ap.parse_args(argv)
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 2
+    if args.port:
+        sys.path.insert(0, os.path.abspath(args.port))
     from tidehunter_tpu_torch import _kernels as K
     from tidehunter_tpu_torch import native
 
@@ -553,11 +622,15 @@ def main() -> int:
         if "Used" in line or "Compiling entry" in line:
             print("ptxas: " + line.strip().removeprefix("ptxas info    : "))
 
-    checks = Checks(card)
+    only = set(args.kernels.split(",")) if args.kernels else None
+    checks = Checks(card, only)
     t0 = time.perf_counter()
-    phase_kernels(checks, dev)
+    phase_kernels(checks, dev, lanes=not args.port)
     print(f"kernels: all equal their plain versions "
-          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+          f"({time.perf_counter() - t0:.1f} s; port "
+          f"{os.path.dirname(os.path.abspath(K.__file__))})", flush=True)
+    if only:
+        return 0
     t0 = time.perf_counter()
     launches = {"wf_dtype_probe": phase_probe(checks, dev)}
     print(f"probe: all variants equal probe_plain "

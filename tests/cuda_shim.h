@@ -5,7 +5,8 @@
 // shuffle a barrier of the warp (so a kernel that lets a warp's lanes
 // diverge across a shuffle deadlocks here, as the CUDA contract forbids).
 // Shared memory is filled with 0xA5 bytes, not zeros, as the card gives
-// no initial value.  Intrinsics compute their exact integer definitions.
+// no initial value.  cp.async copies (cuda_pipeline.h) are synchronous.
+// Intrinsics compute their exact integer definitions.
 #pragma once
 #include <algorithm>
 #include <barrier>
@@ -18,6 +19,7 @@
 
 #define __global__
 #define __device__
+#define __host__
 #define __forceinline__ inline
 #define __launch_bounds__(x)
 #define __restrict__
@@ -28,7 +30,9 @@ using std::min;
 struct dim3s { unsigned x = 0, y = 0, z = 0; };
 inline thread_local dim3s threadIdx, blockIdx, blockDim;
 
+struct int2 { int x, y; };
 struct int4 { int x, y, z, w; };
+inline int2 make_int2(int a, int b) { return {a, b}; }
 struct uint2 { unsigned x, y; };
 struct uint4 { unsigned x, y, z, w; };
 inline int4 make_int4(int a, int b, int c, int d) { return {a, b, c, d}; }
@@ -63,22 +67,38 @@ inline void __syncwarp(unsigned = 0xffffffffu) {
   my_warp()->bar.arrive_and_wait();
 }
 
-inline int shfl_impl(int v, int delta, bool up) {
+// the value of lane src(lane) of the warp; a lane whose source lies
+// outside the warp keeps its own
+template <class F> inline int shfl_impl(int v, F src_of) {
   WarpCtx* w = my_warp();
   const int lane = threadIdx.x & 31;
   w->vals[lane] = v;
   w->bar.arrive_and_wait();
-  const int src = up ? lane - delta : lane + delta;
+  const int src = src_of(lane);
   const int r = (src >= 0 && src < 32) ? w->vals[src] : v;
   w->bar.arrive_and_wait();
   return r;
 }
 inline int __shfl_up_sync(unsigned, int v, int d) {
-  return shfl_impl(v, d, true);
+  return shfl_impl(v, [d](int l) { return l - d; });
 }
 inline int __shfl_down_sync(unsigned, int v, int d) {
-  return shfl_impl(v, d, false);
+  return shfl_impl(v, [d](int l) { return l + d; });
 }
+inline int __shfl_xor_sync(unsigned, int v, int m) {
+  return shfl_impl(v, [m](int l) { return l ^ m; });
+}
+inline int __shfl_sync(unsigned, int v, int src) {
+  return shfl_impl(v, [src](int) { return src & 31; });
+}
+
+// cuda_pipeline.h's primitives: the copy is done at once, so commit and
+// wait have nothing left to do
+inline void __pipeline_memcpy_async(void* dst, const void* src, size_t n) {
+  std::memcpy(dst, src, n);
+}
+inline void __pipeline_commit() {}
+inline void __pipeline_wait_prior(size_t) {}
 
 template <class T> inline T __ldg(const T* p) { return *p; }
 inline int __viaddmax_s32(int a, int b, int c) { return max(a + b, c); }

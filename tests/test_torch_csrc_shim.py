@@ -1,14 +1,16 @@
 """The port's CUDA sources for the redesigned kernels, run on the CPU.
 
-csrc/wavefront.cu (``wf_global``) and csrc/profile_dp.cu (``profile_dp``,
-both its warp kernel and its first version) are compiled with the host's
-C++ compiler over tests/cuda_shim.h, which emulates the CUDA subset they
-use (threads, warp shuffles, barriers, shared memory, the DPX
-intrinsics), and called through the same C entry points and argument
-lists that _kernels.py binds.  Every output must equal the port's plain
-version exactly.  This runs the kernels' own index arithmetic, shuffles
-and edge-column hand-off here; the card's compiler, timing and memory
-model are only checked on the card (chip_smoke.py).
+csrc/wavefront.cu (``wf_global``, ``wf_ext``), csrc/profile_dp.cu
+(``profile_dp``, both its warp kernel and its first version) and
+csrc/profile_bt.cu (``profile_bt``) are compiled with the host's C++
+compiler over tests/cuda_shim.h, which emulates the CUDA subset they use
+(threads, warp shuffles,
+barriers, shared memory, cp.async copies, the DPX intrinsics), and called
+through the same C entry points and argument lists that _kernels.py
+binds.  Every output must equal the port's plain version exactly.  This
+runs the kernels' own index arithmetic, shuffles, tiles and epilogues
+here; the card's compiler, timing and memory model are only checked on
+the card (chip_smoke.py).
 """
 
 import ctypes
@@ -19,6 +21,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import test_torch_kernel_order as KO
 import torch
 
 from tidehunter_tpu_torch import _kernels as K
@@ -27,13 +30,14 @@ from tidehunter_tpu_torch.ops import wavefront as TW
 
 torch.set_num_threads(1)
 
-SOURCES = ("wavefront.cu", "profile_dp.cu")
+SOURCES = ("wavefront.cu", "profile_dp.cu", "profile_bt.cu")
 
 
 def _translate(src: str) -> str:
-    """CUDA C++ -> C++ over cuda_shim.h: the include, dynamic shared
+    """CUDA C++ -> C++ over cuda_shim.h: the includes, dynamic shared
     memory and the <<<...>>> launches."""
     src = src.replace("#include <cuda_runtime.h>", '#include "cuda_shim.h"')
+    src = src.replace("#include <cuda_pipeline.h>", "")
     src = re.sub(r"extern __shared__ (\w+) (\w+)\[\];",
                  r"\1* \2 = (\1*)shim_smem;", src)
     return re.sub(r"([\w:]+(?:<[\w, ]+>)?)\s*<<<(.*?)>>>\s*\(",
@@ -57,7 +61,7 @@ def lib(tmp_path_factory):
                     "-I", str(out), "-o", str(so), *cpps], check=True)
     dll = ctypes.CDLL(str(so))
     fns = {}
-    for k in (K.WF_GLOBAL, K.PROFILE_DP):
+    for k in (K.WF_GLOBAL, K.WF_EXT, K.PROFILE_DP, K.PROFILE_BT):
         fn = getattr(dll, k.name)
         fn.argtypes = [*k.argtypes, ctypes.c_void_p]
         fn.restype = ctypes.c_int
@@ -142,3 +146,115 @@ def test_profile_dp_source_matches_plain(lib, T, W, B, L):
     assert rc == 0
     live = np.arange(2 * T - 1)[:, None] < (qlen + ncol - 1)[None, :]
     np.testing.assert_array_equal(dirs[live], want[live])
+
+
+# (B, LQ, T, lanes a thread): one and several warps, a partial last warp,
+# every L the wrapper may choose, lanes past T in the last thread, ten
+# warps around a band of at most 12 lanes (most warps skip most rows),
+# queries longer than a warp's lanes (whole warps inside the band);
+# then the tie cases of test_torch_kernel_order (many-way ties at the max,
+# found false, en0 == tlen - 1) under its TIE_SCORES
+@pytest.mark.parametrize("B,LQ,T,L", [
+    (6, 24, 40, 1), (4, 40, 100, 2), (3, 30, 72, 4), (3, 50, 300, 4),
+    (2, 60, 700, 16), (5, 12, 300, 1), (3, 100, 100, 1),
+    (2, 140, 150, 2), (8, 16, 24, 1), (8, 16, 24, 4)])
+def test_wf_ext_source_matches_plain(lib, B, LQ, T, L):
+    if T == 24:
+        q, qlen, t, tlen = KO._ext_tie_cases(L, LQ, T)
+        scores = KO.TIE_SCORES
+    else:
+        q, qlen, t, tlen = _pairs(np.random.default_rng(T * 10 + L), B, LQ,
+                                  T)[:4]
+        scores = TW.DEFAULT_SCORES
+    out = np.full((4, B), 0x55, np.int32)
+    rc = lib["wf_ext"](_p(q), LQ, _p(t), T, _p(qlen), _p(tlen), B, *scores,
+                       L, _p(out), None)
+    assert rc == 0
+    want = TW.ext_batch(*map(torch.from_numpy, (q, qlen, t, tlen)), scores)
+    np.testing.assert_array_equal(out, np.stack([w.numpy() for w in want]))
+
+
+@pytest.mark.parametrize("L", [1, 2])
+def test_wf_ext_source_best_at_warp_end(lib, L):
+    """The best cell is the last live cell of a warp and the last row of
+    its round (the query is the target segment ending at the warp's last
+    lane, qlen = 1 mod S), so the warp records it in a round it skips."""
+    whi = 32 * L - 1
+    B, LQ, T = 2, 48, 300
+    rng = np.random.default_rng(L)
+    t = rng.integers(0, 4, (B, T)).astype(np.uint8)
+    q = np.full((B, LQ), 4, np.uint8)
+    qlen = np.array([25 if L == 1 else 41, 9], np.int32)
+    tlen = np.array([T, T], np.int32)
+    for b in range(B):
+        q[b, :qlen[b]] = t[b, whi - qlen[b] + 1:whi + 1]
+    out = np.full((4, B), 0x55, np.int32)
+    rc = lib["wf_ext"](_p(q), LQ, _p(t), T, _p(qlen), _p(tlen), B,
+                       *TW.DEFAULT_SCORES, L, _p(out), None)
+    assert rc == 0
+    want = TW.ext_batch(*map(torch.from_numpy, (q, qlen, t, tlen)))
+    assert int(want[1][0]) == whi
+    np.testing.assert_array_equal(out, np.stack([w.numpy() for w in want]))
+
+
+def _plane(rng, T, W, B):
+    """A random direction plane: every byte a valid direction (sel 0..2)
+    with random continuation and track bits."""
+    raw = rng.integers(0, 256, (2 * T - 1, B, W or T))
+    return ((raw & 0xFC) | (raw % 3)).astype(np.uint8)
+
+
+# (T, W, B): every band rung, full width at the smallest bucket and past
+# one 128-lane window, a partial last CTA
+@pytest.mark.parametrize("T,W,B", [
+    (256, 128, 5), (320, 256, 3), (640, 512, 2), (128, None, 4),
+    (336, None, 5)])
+def test_profile_bt_source_matches_plain(lib, T, W, B):
+    rng = np.random.default_rng(T + (W or 0))
+    dirs = _plane(rng, T, W, B)
+    qlen = np.array([T, 1, T, T // 2, 7][:B], np.int32)
+    ncol = np.array([T, T, 1, T // 3, T - 5][:B], np.int32)
+    want = TMD.profile_bt_plain(*map(torch.from_numpy, (dirs, qlen, ncol)),
+                                T, W)
+    NL = TMD.n_levels(T)
+    ops = np.full((B, NL), 0x55, np.int8)
+    nst = np.full(B, -7, np.int32)
+    tch = np.full(B, -7, np.int32)
+    rc = lib["profile_bt"](_p(dirs), B, T, W or 0, _p(qlen), _p(ncol), NL,
+                           _p(ops), _p(nst), _p(tch), None)
+    assert rc == 0
+    np.testing.assert_array_equal(ops, want[0].numpy())
+    np.testing.assert_array_equal(nst, want[1].numpy())
+    np.testing.assert_array_equal(tch, want[2].numpy())
+
+
+def _at(n, misalign):
+    """n bytes whose address is 1 mod 16 (misalign) or 0 mod 16."""
+    buf = np.zeros(n + 16, np.uint8)
+    off = ((1 if misalign else 0) - buf.ctypes.data) % 16
+    return buf[off:off + n]
+
+
+# (T, W, NL change, dirs misaligned, ops misaligned): each breaks one rule
+# of the 16-byte copies; the entry point must refuse it before any write
+@pytest.mark.parametrize("T,W,dNL,mis_dirs,mis_ops", [
+    (200, 128, 0, False, False), (256, 120, 0, False, False),
+    (112, None, 0, False, False), (256, 128, -8, False, False),
+    (256, 128, 0, True, False), (256, None, 0, False, True)],
+    ids=["T", "W", "full_T", "NL", "dirs_ptr", "ops_ptr"])
+def test_profile_bt_source_refuses_unaligned(lib, T, W, dNL, mis_dirs,
+                                            mis_ops):
+    B = 2
+    dirs = _at((2 * T - 1) * B * (W or T), mis_dirs)
+    dirs[:] = _plane(np.random.default_rng(T), T, W, B).ravel()
+    qlen = np.array([T, T // 2], np.int32)
+    ncol = np.array([T // 2, T], np.int32)
+    NL = TMD.n_levels(T) + dNL
+    ops = _at(B * NL, mis_ops)
+    ops[:] = 0x55
+    nst = np.full(B, -7, np.int32)
+    tch = np.full(B, -7, np.int32)
+    rc = lib["profile_bt"](_p(dirs), B, T, W or 0, _p(qlen), _p(ncol), NL,
+                           _p(ops), _p(nst), _p(tch), None)
+    assert rc == 1                            # cudaErrorInvalidValue
+    assert (ops == 0x55).all() and (nst == -7).all() and (tch == -7).all()

@@ -1,15 +1,23 @@
-"""Index maps of the port's warp kernels, written once in NumPy.
+"""Index maps of the port's redesigned kernels, written once in NumPy.
 
-csrc/wavefront.cu's ``wf_global`` and csrc/profile_dp.cu's banded
-``profile_dp_warp`` compute the same integers as their plain versions in
-another order: a warp of 32 lanes per problem, state in registers, values
-crossing lanes by shuffles.  The models below follow that schedule step by
-step (lane lag, column tiles, the edge column carried between tiles; the
-band window held as 32 lanes x W/32 registers and shifted per row), so an
-index slip shows here on the CPU before the card runs the kernel.  Each
-model must equal the port's plain version and the JAX package's Pallas
-kernel in interpret mode.  Tolerance: exact integer equality.
+csrc/wavefront.cu's ``wf_global`` and ``wf_ext``, csrc/profile_dp.cu's
+banded ``profile_dp_warp`` and csrc/profile_bt.cu's ``profile_bt_warp``
+compute the same integers as their plain versions in another order: state
+in registers, values crossing lanes by shuffles, tiles prefetched into
+shared memory.  The models below follow each schedule step by step (K1:
+lane lag, column tiles, the edge column carried between tiles; K4: the
+band window held as 32 lanes x W/32 registers and shifted per row; K5: the
+walk over a ring of prefetched tiles of rows, asserting that every byte it
+reads lies in the tile prefetched for it; K2: L target lanes a thread,
+warps skewed by S anti-diagonals, left neighbours by shuffle or the
+previous warp's ring, each lane's best cell and the CTA's tie-order
+epilogue), so an index slip shows here on the CPU
+before the card runs the kernel.  Each model must equal the port's plain
+version and the JAX package's Pallas kernel in interpret mode.
+Tolerance: exact integer equality.
 """
+
+import re
 
 import numpy as np
 import pytest
@@ -19,6 +27,7 @@ import jax.numpy as jnp
 
 from tidehunter_tpu.ops import msa_device as MD
 from tidehunter_tpu.ops import wavefront as WF
+from tidehunter_tpu_torch import _kernels as K
 from tidehunter_tpu_torch.ops import msa_device as TMD
 from tidehunter_tpu_torch.ops import wavefront as TW
 
@@ -28,6 +37,14 @@ LANES = 32
 B = 8
 TLB, TLMASK = TW.TLB, TW.TLMASK
 GAPS = dict(gap_open2=24, gap_ext2=1)
+
+
+def _csrc(name: str, pattern: str) -> tuple:
+    """Integers a kernel's source defines (the pattern's groups), read from
+    csrc/ so that a model follows the kernel's own geometry."""
+    m = re.search(pattern, (K.CSRC / name).read_text())
+    assert m, f"{pattern!r} not in csrc/{name}"
+    return tuple(int(g) for g in m.groups())
 
 
 # ------------------------------------------------------------------ K1 --
@@ -366,3 +383,317 @@ def test_profile_dp_window_matches_jax(monkeypatch):
     for b in range(B):
         np.testing.assert_array_equal(_live(got, qlen, ncol, b),
                                       _live(jdirs, qlen, ncol, b))
+
+
+# ------------------------------------------------------------------ K5 --
+
+
+def _bt_step(mode, val):
+    """step() of csrc/profile_bt.cu: (sel, next mode) from a direction
+    byte; mode -1 fresh, 1/3 an I run on track 1/2, 2/4 a D run."""
+    in_run = mode > 0
+    sel = (1 if mode & 1 else 2) if in_run else val & 3
+    i_trk2 = (mode == 3) if in_run else (val >> 4) & 1
+    d_trk2 = (mode == 4) if in_run else (val >> 5) & 1
+    icont = (val >> 6) & 1 if i_trk2 else (val >> 2) & 1
+    fcont = (val >> 7) & 1 if d_trk2 else (val >> 3) & 1
+    if sel == TMD.OP_M:
+        return sel, -1
+    if sel == TMD.OP_I:
+        return sel, (3 if i_trk2 else 1) if icont else -1
+    return sel, (4 if d_trk2 else 2) if fcont else -1
+
+
+def profile_bt_model(dirs, qlen, ncol, T, W):
+    """(ops, nst, tch) by profile_bt_warp's schedule: the walk reads its
+    direction bytes only from a ring of NT tiles of KR rows, tile k holding
+    rows (R0 - (k + 1) KR, R0 - k KR] in slot k mod NT; tiles 0..NT-1 are
+    requested at the start, and when the walk enters tile k the slot of
+    tile k - 1 is refilled with tile k + NT - 1.  A tile row is the whole
+    band row (banded) or the 128 lanes from window(c) of the walk's entry
+    into the tile NT - 1 before it (full width; c = ncol for tiles
+    0..NT-1).  Asserts that every byte read lies in the tile of its row,
+    present in the ring."""
+    (KR,), (NT,), (FT,) = (
+        _csrc("profile_bt.cu", rf"constexpr int {n} = (\d+);")
+        for n in ("KR", "NTILE", "FULL_TW"))
+    nb = len(qlen)
+    TWd = W or FT
+    NL = TMD.n_levels(T)
+    ops = np.full((nb, NL), TMD.OP_PAD, np.int8)
+    nst = np.zeros(nb, np.int32)
+    tch = np.zeros(nb, np.int32)
+
+    def window(c):
+        return min(max(c - NT * KR, 0) & ~15, T - FT)
+
+    for b in range(nb):
+        j, c = int(qlen[b]), int(ncol[b])
+        R0 = j + c - 2
+
+        def load(k, llo):
+            """(k, llo, {row: its TWd bytes from lane llo}) of tile k."""
+            assert llo % 16 == 0 and 0 <= llo and llo + TWd <= (W or T)
+            rows = range(max(R0 - (k + 1) * KR + 1, 0), R0 - k * KR + 1)
+            return k, llo, {r: dirs[r, b, llo:llo + TWd].copy() for r in rows}
+
+        ring = [load(k, 0 if W else window(c)) for k in range(NT)]
+        kt = 0
+        mode, m, touch = -1, 0, 0
+        while j > 0 or c > 0:
+            if j > 0 and c > 0:
+                r = j + c - 2
+                if r <= R0 - (kt + 1) * KR:        # entered tile kt + 1
+                    kt += 1
+                    ring[(kt + NT - 1) % NT] = load(kt + NT - 1,
+                                                    0 if W else window(c))
+                k, llo, rows = ring[kt % NT]
+                assert k == kt and r in rows, (b, r, kt)
+                li = c - 1 - (TMD.band_base(r, T, W) if W else llo)
+                if not W:
+                    assert 0 <= li < TWd, (b, r, c, llo)
+                val = int(rows[r][li]) if 0 <= li < TWd else 0
+                sel, mode = _bt_step(mode, val)
+            else:
+                sel, mode = (TMD.OP_D if j == 0 else TMD.OP_I), -1
+            ops[b, NL - 1 - m] = sel
+            if W and abs(c - j) >= W - 16:
+                touch = 1
+            j -= sel != TMD.OP_D
+            c -= sel != TMD.OP_I
+            m += 1
+        nst[b], tch[b] = m, touch
+    return ops, nst, tch
+
+
+def _bt_plane(seed, T, W):
+    """A random direction plane (every byte a valid direction: sel 0..2,
+    random continuation and track bits) and B paths from corners, edges
+    and the middle of the DP matrix."""
+    rng = np.random.default_rng(seed)
+    raw = rng.integers(0, 256, (2 * T - 1, B, W or T))
+    dirs = ((raw & 0xFC) | (raw % 3)).astype(np.uint8)
+    qlen = np.array([T, 1, T, T // 2, 7, T - 3, T // 3, 1], np.int32)
+    ncol = np.array([T, T, 1, T // 3, T - 5, T, T // 2, 1], np.int32)
+    return dirs, qlen, ncol
+
+
+def _bt_check(got, want):
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, np.asarray(w).reshape(g.shape))
+
+
+@pytest.mark.parametrize("W", [128, 256, 512, None],
+                         ids=["W128", "W256", "W512", "full"])
+def test_profile_bt_tiles_match_plain(W):
+    T = 640
+    dirs, qlen, ncol = _bt_plane(T + (W or 0), T, W)
+    got = profile_bt_model(dirs, qlen, ncol, T, W)
+    want = TMD.profile_bt_plain(*map(torch.from_numpy, (dirs, qlen, ncol)),
+                                T, W)
+    _bt_check(got, [w.numpy() for w in want])
+    if W:
+        assert got[2].any() and not got[2].all()   # band touches both ways
+
+
+def test_profile_bt_tiles_match_jax(monkeypatch):
+    monkeypatch.setattr(MD, "INTERPRET", True)
+    monkeypatch.setattr(MD, "_B_CAP", B)
+    jm = MD.DeviceMSA(2, 4, 4, 2, **GAPS)
+    for T, W in ((256, 128), (256, None)):
+        dirs, qlen, ncol = _bt_plane(T, T, W)
+        got = profile_bt_model(dirs, qlen, ncol, T, W)
+        run_bt, Bj, _ = jm._bt_run(T, W, B)
+        assert Bj == B
+        want = run_bt(jnp.asarray(dirs), jnp.asarray(qlen).reshape(-1, 1),
+                      jnp.asarray(ncol).reshape(-1, 1))
+        _bt_check(got, want)
+
+
+# ------------------------------------------------------------------ K2 --
+
+
+def _tie_key(ti, st0, en0):
+    """tie_key of csrc/wavefront.cu: en0, then the SIMD lanes of
+    [st0, en1) in lane order, then the remainder; lowest t within each."""
+    en1 = st0 + (en0 - st0) // 4 * 4
+    cls = np.where(ti == en0, 0,
+                   np.where(ti < en1, 1 + ((ti - st0) & 3), 5))
+    return (cls << 14) | ti
+
+
+def _ext_skew(L):
+    """ext_skew of csrc/wavefront.cu: anti-diagonals a warp runs between
+    barriers."""
+    most, few, many = _csrc(
+        "wavefront.cu",
+        r"ext_skew\(int L\) \{ return L <= (\d+) \? (\d+) : (\d+); \}")
+    return few if L <= most else many
+
+
+def wf_ext_model(q, qlen, t, tlen, L, scores=TW.DEFAULT_SCORES):
+    """(max, max_t, max_q, score) by wf_ext's schedule: thread k owns
+    lanes [k L, k L + L) of a CTA of 32-thread warps; in round n warp w
+    runs rows [(n - w) S, (n - w + 1) S).  Lane t - 1's v, x, H of the
+    previous row come from the thread's own registers, from thread k - 1
+    (shfl_up) or, at a warp's lane 0, from the previous warp's ring as it
+    stood at the round's barrier; the model asserts that every ring entry
+    a live lane reads holds the row it needs.  Each warp takes one branch
+    a row: none (no live lane in the round, or a row outside the problem),
+    the interior cell (no boundary term, no mask) or the edge cell (the
+    en0 rule; lanes past en0 keep the state set for their top cell,
+    finished lanes take whatever they compute).  Each live lane keeps its
+    best H above 0 and the first row reaching it; the epilogue takes the
+    CTA's best by (H, -row, -tie key of the lane in that row)."""
+    go, ge = scores[2], scores[3]
+    QE = go + ge
+    S = _ext_skew(L)
+    RB = S * _csrc("wavefront.cu",
+                   r"ext_ring\(int L\) \{ return (\d+) \* ext_skew\(L\); \}")[0]
+    nb, LQ = q.shape
+    T = t.shape[1]
+    NT = -(-T // (32 * L)) * 32
+    NW = NT // 32
+    k = np.arange(NT)
+    ti = k[:, None] * L + np.arange(L)[None, :]
+    lane0 = k % 32 == 0
+    wid = k // 32
+    w = np.arange(NW)
+    wlo, whi = w * 32 * L, w * 32 * L + 32 * L - 1
+    from_slot = lane0 & (wid > 0)
+    out = np.zeros((4, nb), np.int64)
+    for b in range(nb):
+        ql, tl = int(qlen[b]), int(tlen[b])
+        nrows = ql + tl - 1
+        tv = np.where(ti < tl, t[b, np.minimum(ti, T - 1)], 4)
+        U = np.where(ti > 0, go, 0).astype(np.int64)
+        Y, V, X = (np.zeros((NT, L), np.int64) for _ in range(3))
+        H = np.where(ti > 0, TW.NEG_INF32, -QE).astype(np.int64)
+        ring = np.full((NW, RB, 4), -(1 << 40), np.int64)   # row, v, x, h
+        BH = np.zeros((NT, L), np.int64)
+        BR = np.full((NT, L), -1, np.int64)
+        rounds = (nrows + (NW - 1) * S + S - 1) // S
+        for n in range(rounds):
+            rb = (n - w) * S
+            live = ((rb < nrows) & (rb + S - 1 >= 0)
+                    & (wlo <= np.minimum(tl - 1, rb + S - 1))
+                    & (whi >= np.maximum(0, rb - ql + 1)))
+            snap = ring.copy()                  # as at the round's barrier
+            reads = []          # (warp, ring row, row) read by live lanes
+            for kk in range(S):
+                rw = rb + kk                    # each warp's row
+                r = rw[wid]
+                okw = live & (rw >= 0) & (rw < nrows)
+                ok = okw[wid]
+                st0 = np.maximum(0, r - ql + 1)
+                en0 = np.minimum(tl - 1, r)
+                s0, e0 = st0[:, None], en0[:, None]
+                last = np.stack([V[:, -1], X[:, -1], H[:, -1]], axis=1)
+                left = np.roll(last, 1, axis=0)
+                src = snap[wid[from_slot] - 1, (r[from_slot] - 1) & (RB - 1)]
+                left[from_slot] = src[:, 1:]
+                need = from_slot & ok & (ti[:, 0] >= st0) & (ti[:, 0] <= en0)
+                reads.append((wid[need] - 1, (r[need] - 1) & (RB - 1),
+                              r[need] - 1))
+                assert (snap[reads[-1][:2]][:, 0] == r[need] - 1).all()
+                left[0, :2] = (go if r[0] > 0 else 0, 0)   # t = 0 boundary
+                # q[r - t] = qs[T + LQ - 1 - r + t], qs of LQ + 2T + 32L
+                # bytes, read for the rows of the problem
+                qi = T + LQ - 1 - r[:, None] + ti
+                assert (qi[ok] >= 0).all() and (qi[ok] < LQ + 2 * T + 32 * L).all()
+                jq = r[:, None] - ti
+                qv = np.where((jq >= 0) & (jq < ql),
+                              q[b, np.clip(jq, 0, LQ - 1)], 4)
+                v_sh = np.concatenate([left[:, :1], V[:, :-1]], axis=1)
+                x_sh = np.concatenate([left[:, 1:2], X[:, :-1]], axis=1)
+                h_sh = np.concatenate([left[:, 2:], H[:, :-1]], axis=1)
+                u, v, x, y, _, _, _ = _diff_core(qv, tv, U, Y, v_sh, x_sh,
+                                                 scores)
+                edge = ~((wlo >= np.maximum(0, rw - ql + 1))
+                         & (whi < np.minimum(tl - 1, rw)))[wid][:, None]
+                h = np.where(edge & (ti == e0) & (e0 > 0), h_sh + u - QE,
+                             H + v - QE)
+                upd = ok[:, None] & ~(edge & (ti > e0))
+                lv = (ti >= s0) & (ti <= e0)
+                assert not (ok[:, None] & ~edge & ~lv).any()
+                U, Y, V, X, H = (np.where(upd, n_, o) for n_, o in (
+                    (u, U), (y, Y), (v, V), (x, X), (h, H)))
+                imp = ok[:, None] & lv & (H > BH)
+                BH, BR = np.where(imp, H, BH), np.where(imp, r[:, None], BR)
+                ring[okw, rw[okw] & (RB - 1)] = np.stack(
+                    [rw, V[31::32, -1], X[31::32, -1], H[31::32, -1]],
+                    axis=1)[okw]
+            # nor did any warp overwrite them in the round (no order
+            # between warps inside a round)
+            for wi, idx, row in reads:
+                assert (ring[wi, idx, 0] == row).all(), (b, n)
+        st0 = np.maximum(0, BR - ql + 1)
+        key = _tie_key(ti, st0, np.minimum(tl - 1, BR))
+        best = np.lexsort((key.ravel(), BR.ravel(), -BH.ravel()))[0]
+        mt = key.ravel()[best] & ((1 << 14) - 1)
+        found = BH.ravel()[best] > 0
+        out[:, b] = (BH.ravel()[best] if found else 0, mt if found else -1,
+                     BR.ravel()[best] - mt if found else -1,
+                     H[(tl - 1) // L, (tl - 1) % L])
+    return out
+
+
+TIE_SCORES = (2, -2, 0, 1)   # no gap open: equal H in one row is common
+
+
+def _ext_tie_cases(seed, LQ, T):
+    """B problems over 2-4 letters, picked from a seeded pool under
+    TIE_SCORES: three with 3 or more lanes at the max in the winning row
+    r*, two with 2 or more of them and none at en0, one that never scores
+    above 0 (found false), two whose r* has en0 == tlen - 1."""
+    rng = np.random.default_rng(seed)
+    n = 4096
+    q = np.full((n, LQ), 4, np.uint8)
+    t = np.full((n, T), 4, np.uint8)
+    qlen = rng.integers(1, LQ + 1, n).astype(np.int32)
+    tlen = rng.integers(1, T + 1, n).astype(np.int32)
+    for b in range(n):
+        k = int(rng.integers(2, 5))
+        q[b, :qlen[b]] = rng.integers(0, k, qlen[b])
+        t[b, :tlen[b]] = rng.integers(0, k, tlen[b])
+    besth, bestr, _ = TW.ext_plain(*map(torch.from_numpy, (q, qlen, t, tlen)),
+                                   TIE_SCORES)
+    besth, bestr = besth.numpy(), bestr.numpy()
+    M = besth.max(axis=1)
+    rstar = np.where(besth == M[:, None], bestr, 1 << 30).min(axis=1)
+    cand = (besth == M[:, None]) & (bestr == rstar[:, None]) & (M[:, None] > 0)
+    en0 = np.minimum(tlen - 1, rstar)
+    at_en0 = cand[np.arange(n), np.minimum(en0, T - 1)]
+    want = ((cand.sum(1) >= 3, 3), ((cand.sum(1) >= 2) & ~at_en0, 2),
+            (M <= 0, 1), ((M > 0) & (en0 == tlen - 1) & (qlen > tlen), 2))
+    idx = []
+    for mask, count in want:
+        idx += [int(i) for i in np.nonzero(mask)[0] if i not in idx][:count]
+    assert len(idx) == B
+    return q[idx], qlen[idx], t[idx], tlen[idx]
+
+
+@pytest.mark.parametrize("L", [1, 2, 4, 16])
+@pytest.mark.parametrize("case", ["pairs", "ties"])
+def test_wf_ext_schedule_matches_plain(case, L):
+    if case == "pairs":
+        q, qlen, t, tlen = _pairs(L * 10 + 7, 72, 80)[:4]
+        scores = TW.DEFAULT_SCORES
+    else:
+        q, qlen, t, tlen = _ext_tie_cases(L, 16, 24)
+        scores = TIE_SCORES
+    got = wf_ext_model(q, qlen, t, tlen, L, scores)
+    want = TW.ext_batch(*map(torch.from_numpy, (q, qlen, t, tlen)), scores)
+    np.testing.assert_array_equal(got, np.stack([w.numpy() for w in want]))
+
+
+def test_wf_ext_schedule_matches_jax(monkeypatch):
+    monkeypatch.setattr(WF, "INTERPRET", True)
+    monkeypatch.setattr(WF, "_TILE_CELLS", 1024)   # tile_b -> 8 rows
+    for (q, qlen, t, tlen), scores, L in (
+            (_pairs(13, 16, 96)[:4], TW.DEFAULT_SCORES, 2),
+            (_ext_tie_cases(5, 16, 24), TIE_SCORES, 1)):
+        got = wf_ext_model(q, qlen, t, tlen, L, scores)
+        want = WF.ext_batch(q, qlen, t, tlen, scores)
+        np.testing.assert_array_equal(
+            got, np.stack([np.asarray(w) for w in want]))

@@ -171,3 +171,10 @@ def test_region_past_largest_bucket_returns_none():
     regions = [[_mut(rng, base, 0.05) for _ in range(3)]]
     tm = TMD.DeviceMSA(2, 4, 4, 2, device="cpu", buckets=(128,))
     assert tm.consensus_batch(regions) == [None]
+
+
+def test_device_msa_defaults_to_the_card():
+    """DeviceMSA runs on the card unless the caller asks for the CPU, like
+    Engine and Detector."""
+    assert TMD.DeviceMSA(2, 4, 4, 2).device.type == "cuda"
+    assert TMD.DeviceMSA(2, 4, 4, 2, device="cpu").device.type == "cpu"

@@ -148,7 +148,7 @@ class Kernel:
 # csrc/wavefront.cu
 WF_GLOBAL = Kernel("wf_global", [P, I, P, I, P, P, P, I, I, I, I, I, I,
                                  P, P, P])
-WF_EXT = Kernel("wf_ext", [P, I, P, I, P, P, I, I, I, I, I, P, P, P, P])
+WF_EXT = Kernel("wf_ext", [P, I, P, I, P, P, I, I, I, I, I, I, P])
 # csrc/profile_dp.cu
 PROFILE_DP = Kernel("profile_dp", [P, I, P, P, P, P, P, P, P, I, I, I,
                                    I, I, I, I, I, I, P])

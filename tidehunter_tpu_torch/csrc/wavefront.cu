@@ -23,17 +23,40 @@
 // of qlen rows for the next tile's lane 0, in shared memory when WARPS of
 // them fit, else in a global scratch the wrapper allocates.
 //
-// wf_ext (first version): one CTA per problem, threads striding over the
-// live lanes [st0, en0] of each anti-diagonal r (lane t, query r - t), one
-// __syncthreads() per anti-diagonal.  Rows read at lane t-1 (v, x, H)
-// ping-pong by row parity, rows read only at their own lane (u, y) update
-// in place; they live in dynamic shared memory when they fit (8 rows x T x
-// 4 B; T <= 4096) and otherwise in a global scratch.
+// wf_ext: one CTA per problem; the launches of the default path carry
+// 1-11 problems, so its time is the latency of one problem's chain of
+// qlen + tlen - 1 anti-diagonals.  Thread k owns the L consecutive target
+// lanes [k L, k L + L) and keeps their u, y, v, x and H in registers.  Cell
+// (r, t) (query r - t) reads u, y of its own lane at r - 1 and v, x (and H
+// at t == en0) of lane t - 1 at r - 1: inside the thread from its own
+// registers (lanes visited right to left), from the thread before by
+// __shfl_up_sync, and across warps through shared memory.  With a barrier
+// per anti-diagonal a row cost ~450 clocks at (512,640) on the H100
+// (PERF.md), so the warps are skewed instead: in round n warp w runs
+// the S anti-diagonals [(n - w) S, (n - w + 1) S) back to back, its lanes
+// handing values on by shuffle, and its last lane writes v, x, H of each
+// row to the warp's ring of RB rows; warp w + 1 reads rows written one and
+// two rounds before.  One __syncthreads() per round; no state row and no
+// load from device memory inside the loop (the query is staged reversed in
+// shared memory, so q[r - t] over a thread's lanes is a run of consecutive
+// bytes; the target codes sit in registers).  A warp takes one branch a
+// row, so its lanes never diverge: no work when none of its lanes is live
+// in the round, the interior cell when all are live and none is en0 (a
+// round wholly inside the band tests nothing else), else the edge cell,
+// which masks lanes not yet started (their state already holds what their
+// top cell reads) and leaves no other boundary term to test.  Each lane
+// keeps its best H and the first row reaching it (rows come in increasing
+// r, so a strict > keeps the first); the epilogue gives each lane its tie
+// key in that row (the reference's row-scan order) and reduces over the
+// CTA into (max, max_t, max_q), the outputs of ops/wavefront.ext_tie_order.
+// L is chosen by the wrapper (at most 1024 threads), S by L (ext_skew).
 //
 // What bounds them: integer operations, a chain of dependent ones per
 // cell and no reuse for tensor cores.  wf_global keeps the chain per lane
 // (C cells a step) and leaves the card's integer pipes to many warps;
-// wf_ext's barrier per anti-diagonal makes short rows latency-bound.
+// wf_ext's short launches (one problem an SM) are bound by the issue of
+// one SM: a row's loop body is ~115 SASS instructions at L = 1, against
+// the 49 ops a cell that chip_smoke.py counts.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -42,8 +65,9 @@ namespace {
 
 constexpr int TLB = 14;                 // t_left field width (tl + 1)
 constexpr int TLMASK = (1 << TLB) - 1;
-constexpr int BESTR_UNSET = 0x7FFFFFF;
+constexpr int NEG_INF32 = -(1 << 30);
 constexpr int WARPS = 4;                // wf_global problems per CTA
+constexpr int EXT_THREADS = 1024;       // wf_ext: the most threads a CTA
 constexpr unsigned FULL = 0xffffffffu;
 
 struct Scores {
@@ -85,17 +109,6 @@ __device__ __forceinline__ DiffRow diff_core(int qv, int tv, int u_b,
   o.bit08 = a2 > 0;
   o.bit10 = b2 > 0;
   return o;
-}
-
-// One cell of anti-diagonal r at lane ti: reads (r-1, t) in place (u, y)
-// and (r-1, t-1) from the previous-parity rows (v, x).
-__device__ __forceinline__ DiffRow diff_cell(
-    int r, int ti, int qv, int tv, const int* U, const int* Y,
-    const int* Vp, const int* Xp, Scores sc) {
-  const int bq = r > 0 ? sc.go : 0;
-  const bool is_r = ti == r;
-  return diff_core(qv, tv, is_r ? bq : U[ti], is_r ? 0 : Y[ti],
-                   ti == 0 ? bq : Vp[ti - 1], ti == 0 ? 0 : Xp[ti - 1], sc);
 }
 
 template <bool WITH_TL, int C>
@@ -227,68 +240,256 @@ __global__ void __launch_bounds__(WARPS * 32) wf_global_kernel(
   }
 }
 
-__global__ void wf_ext_kernel(
-    const uint8_t* __restrict__ q, int LQ, const uint8_t* __restrict__ t,
-    int T, const int* __restrict__ qlen_a, const int* __restrict__ tlen_a,
-    Scores sc, int* __restrict__ besth, int* __restrict__ bestr,
-    int* __restrict__ score, int* __restrict__ scratch) {
-  extern __shared__ int smem[];
+// The reference's row-scan tie key of lane ti in anti-diagonal r
+// (ksw2_extz2_sse.c:229-260, ops/ksw2._row_max_scan): en0 first, then the
+// four SIMD lanes of [st0, en1) in lane order, lowest t first, then the
+// remainder [en1, en0) lowest t first.  Smaller is earlier; t < 2^14.
+__device__ __forceinline__ int tie_key(int ti, int st0, int en0, int en1) {
+  const int cls = ti == en0 ? 0 : (ti < en1 ? 1 + ((ti - st0) & 3) : 5);
+  return (cls << 14) | ti;
+}
+
+// (h, r, key) a better maximum than (h2, r2, key2): higher H, then the
+// earlier row, then the earlier tie key.
+__device__ __forceinline__ bool better(int h, int r, int k, int h2, int r2,
+                                       int k2) {
+  return h > h2 || (h == h2 && (r < r2 || (r == r2 && k < k2)));
+}
+
+// The staged query of wf_ext: LQ codes with T codes of padding before and
+// T + 32 L after (the lanes of a CTA's last warp reach past T).
+__host__ __device__ __forceinline__ int ext_qs_bytes(int LQ, int T, int L) {
+  return LQ + 2 * T + 32 * L;
+}
+
+// Byte e of codes packed four to a word.
+template <int N>
+__device__ __forceinline__ int code(const uint32_t (&w)[N], int e) {
+  return (w[e >> 2] >> (8 * (e & 3))) & 0xff;
+}
+
+// One anti-diagonal r over a thread's lanes [t0, t0 + L), right to left
+// (lane e reads lane e - 1 before it changes); vl, xl, hl are lane
+// t0 - 1's v, x, H at the previous anti-diagonal (at t = 0 the
+// boundary's).  Each live lane keeps its best H above 0 and the first row
+// reaching it (a strict >: rows come in increasing r).  EDGE = false: the
+// whole warp lies in [st0, en0), so every lane is live and none is en0.
+// EDGE = true: a lane not yet started (ti > en0) keeps its state, which
+// holds the values its first (top) cell needs: U = the i = 0 boundary bq,
+// Y = 0, and H = -QE at lane 0 (so its r = 0 cell gets v - 2 QE); a
+// finished lane (ti < st0) is overwritten, as no live cell reads it again,
+// and keeps its best.
+template <int L, bool EDGE>
+__device__ __forceinline__ void ext_row(
+    int (&U)[L], int (&Y)[L], int (&V)[L], int (&X)[L], int (&H)[L],
+    int (&BH)[L], int (&BR)[L], const uint32_t (&tp)[(L + 3) / 4],
+    const uint32_t (&qp)[(L + 3) / 4], int t0, int r, int st0, int en0,
+    int vl, int xl, int hl, Scores sc) {
+  const int QE = sc.go + sc.ge;
+#pragma unroll
+  for (int e = L - 1; e >= 0; --e) {
+    const int ti = t0 + e;
+    const DiffRow o = diff_core(code(qp, e), code(tp, e), U[e], Y[e],
+                                e ? V[e - 1] : vl, e ? X[e - 1] : xl, sc);
+    // ksw2_extz2_sse.c:224-266: H[en0] = H_prev[en0-1] + u - QE,
+    // H[t < en0] += v - QE
+    int h = H[e] + o.v - QE;
+    if (EDGE) {
+      if (ti == en0 && en0 > 0) h = (e ? H[e - 1] : hl) + o.u - QE;
+      if (ti > en0) continue;
+      if (ti >= st0 && h > BH[e]) {
+        BH[e] = h;
+        BR[e] = r;
+      }
+    } else if (h > BH[e]) {
+      BH[e] = h;
+      BR[e] = r;
+    }
+    U[e] = o.u;
+    Y[e] = o.y;
+    V[e] = o.v;
+    X[e] = o.x;
+    H[e] = h;
+  }
+}
+
+// Anti-diagonals a warp runs between barriers, by lanes a thread (the
+// round's ring values and query codes sit in registers, under the 64 a
+// thread of a 1024-thread CTA), and the rows of a warp's ring (a power of
+// two, at least 2 S + 1: the rows read and the rows written in a round).
+__host__ __device__ constexpr int ext_skew(int L) { return L <= 4 ? 4 : 2; }
+__host__ __device__ constexpr int ext_ring(int L) { return 4 * ext_skew(L); }
+
+template <int L>
+__global__ void __launch_bounds__(L >= 16 ? EXT_THREADS / 2 : EXT_THREADS)
+    wf_ext_kernel(const uint8_t* __restrict__ q, int LQ,
+                  const uint8_t* __restrict__ t, int T,
+                  const int* __restrict__ qlen_a,
+                  const int* __restrict__ tlen_a, int B, Scores sc,
+                  int* __restrict__ out) {
+  constexpr int S = ext_skew(L), RB = ext_ring(L);
+  extern __shared__ int ext_s[];
+  const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
+  const int nw = blockDim.x >> 5;
   const int bi = blockIdx.x;
-  int* buf = scratch ? scratch + (size_t)bi * 8 * T : smem;
-  int* U = buf;             // in place
-  int* Y = U + T;           // in place
-  int* V = Y + T;           // 2 rows (parity)
-  int* X = V + 2 * T;       // 2 rows (parity)
-  int* H = X + 2 * T;       // 2 rows (parity): 32-bit H of ksw2 extz2
-  int* bh = besth + (size_t)bi * T;   // per-lane best H, first row
-  int* br = bestr + (size_t)bi * T;
+  int* ring = ext_s;                        // [nw][RB] x (v, x, h)
+  int* red = ring + 3 * RB * nw;            // [nw] x (h, r, key)
+  uint8_t* qs = (uint8_t*)(red + 3 * nw);   // the query reversed, padded
 
   const int qlen = qlen_a[bi], tlen = tlen_a[bi];
   const uint8_t* qr = q + (size_t)bi * LQ;
   const uint8_t* tr = t + (size_t)bi * T;
-  const int QE = sc.go + sc.ge;
-  const int nrows = qlen + tlen - 1;
-
-  for (int ti = threadIdx.x; ti < T; ti += blockDim.x) {
-    bh[ti] = 0;
-    br[ti] = BESTR_UNSET;
+  // q[r - ti] = qs[QO - r + ti], code 4 off the query; every thread's
+  // lanes stay inside [0, ext_qs_bytes) for r in [0, qlen + tlen - 1)
+  const int QO = T + LQ - 1;
+  for (int k = tid; k < ext_qs_bytes(LQ, T, L); k += blockDim.x) {
+    const int jj = QO - k;
+    qs[k] = (jj >= 0 && jj < qlen) ? qr[jj] : 4;
   }
-  __syncthreads();
 
-  for (int r = 0; r < nrows; ++r) {
-    const int st0 = max(0, r - qlen + 1);
-    const int en0 = min(tlen - 1, r);
-    const int cur = r & 1, prv = cur ^ 1;
-    int* Vc = V + cur * T;
-    int* Xc = X + cur * T;
-    int* Hc = H + cur * T;
-    const int* Vp = V + prv * T;
-    const int* Xp = X + prv * T;
-    const int* Hp = H + prv * T;
-    for (int ti = st0 + threadIdx.x; ti <= en0; ti += blockDim.x) {
-      const DiffRow o =
-          diff_cell(r, ti, qr[r - ti], tr[ti], U, Y, Vp, Xp, sc);
-      // ksw2_extz2_sse.c:224-266: H[en0] = H_prev[en0-1] + u - QE,
-      // H[t < en0] += v - QE, H[0] at r == 0 = v - 2 QE
-      int h;
-      if (r == 0 && ti == 0)
-        h = o.v - QE - QE;
-      else if (ti == en0 && en0 > 0)
-        h = Hp[ti - 1] + o.u - QE;
-      else
-        h = Hp[ti] + o.v - QE;
-      U[ti] = o.u;
-      Y[ti] = o.y;
-      Vc[ti] = o.v;
-      Xc[ti] = o.x;
-      Hc[ti] = h;
-      if (h > bh[ti]) {   // strict: keep the first row reaching the best
-        bh[ti] = h;
-        br[ti] = r;
+  // this thread's lanes [t0, t0 + L): target codes, the state of the
+  // previous anti-diagonal (u, y at lane t; v, x, H read at t + 1 too),
+  // set to what each lane's top cell reads (ext_row), and each lane's
+  // best H and its row
+  const int t0 = tid * L;
+  // the warp's lanes, for the warp-uniform choice of ext_row's variant
+  const int wlo = wid * 32 * L, whi = wlo + 32 * L - 1;
+  constexpr int NP = (L + 3) / 4;
+  uint32_t tp[NP] = {};                     // codes, four a word
+  int U[L], Y[L], V[L], X[L], H[L], BH[L], BR[L];
+#pragma unroll
+  for (int e = 0; e < L; ++e) {
+    const int ti = t0 + e;
+    tp[e >> 2] |= (uint32_t)(ti < tlen ? tr[ti] : 4) << (8 * (e & 3));
+    U[e] = ti > 0 ? sc.go : 0;
+    Y[e] = V[e] = X[e] = 0;
+    H[e] = ti > 0 ? NEG_INF32 : -(sc.go + sc.ge);
+    BH[e] = 0;
+    BR[e] = -1;
+  }
+  const int nrows = qlen + tlen - 1;
+  const int rounds = (nrows + (nw - 1) * S + S - 1) / S;
+  __syncthreads();
+  // lane t0 - 1 at the previous row
+  int vl = __shfl_up_sync(FULL, V[L - 1], 1);
+  int xl = __shfl_up_sync(FULL, X[L - 1], 1);
+  int hl = __shfl_up_sync(FULL, H[L - 1], 1);
+
+  for (int n = 0; n < rounds; ++n) {
+    const int rb = (n - wid) * S;           // the warp's rows [rb, rb + S)
+    const int re = rb + S - 1;
+    if (rb < nrows && re >= 0 && wlo <= min(tlen - 1, re) &&
+        whi >= max(0, rb - qlen + 1)) {
+      // the round's inputs, read before any store of the round: row r's
+      // query codes, and (lane 0) the previous warp's last lane at r - 1
+      uint32_t qp[S][NP];
+      int rv[S], rx[S], rh[S];
+#pragma unroll
+      for (int k = 0; k < S; ++k) {
+        const uint8_t* qn = qs + QO - (rb + k) + t0;
+#pragma unroll
+        for (int w = 0; w < NP; ++w) qp[k][w] = 0;
+        if (rb + k >= 0 && rb + k < nrows) {
+#pragma unroll
+          for (int e = 0; e < L; ++e)
+            qp[k][e >> 2] |= (uint32_t)qn[e] << (8 * (e & 3));
+        }
+        rv[k] = rx[k] = rh[k] = 0;
+        if (lane == 0 && wid > 0) {
+          const int* s = ring + 3 * ((wid - 1) * RB + ((rb + k - 1) & (RB - 1)));
+          rv[k] = s[0];
+          rx[k] = s[1];
+          rh[k] = s[2];
+        }
       }
-      if (r == nrows - 1 && ti == tlen - 1) score[bi] = h;
+      // every row of the round inside the problem and the warp inside
+      // every row's [st0, en0): no test a row but the t = 0 boundary
+      const bool inner = rb >= 0 && re < nrows &&
+                         wlo >= max(0, re - qlen + 1) &&
+                         whi < min(tlen - 1, rb);
+#pragma unroll
+      for (int k = 0; k < S; ++k) {
+        const int r = rb + k;
+        if (!inner && (r < 0 || r >= nrows)) continue;
+        const int st0 = max(0, r - qlen + 1);
+        const int en0 = min(tlen - 1, r);
+        if (lane == 0 && wid > 0) {   // the last lane of the warp before
+          vl = rv[k];
+          xl = rx[k];
+          hl = rh[k];
+        }
+        if (t0 == 0) {                // the t = 0 boundary
+          vl = r > 0 ? sc.go : 0;
+          xl = 0;
+        }
+        if (inner || (wlo >= st0 && whi < en0))
+          ext_row<L, false>(U, Y, V, X, H, BH, BR, tp, qp[k], t0, r, st0,
+                            en0, vl, xl, hl, sc);
+        else
+          ext_row<L, true>(U, Y, V, X, H, BH, BR, tp, qp[k], t0, r, st0, en0,
+                           vl, xl, hl, sc);
+        vl = __shfl_up_sync(FULL, V[L - 1], 1);
+        xl = __shfl_up_sync(FULL, X[L - 1], 1);
+        hl = __shfl_up_sync(FULL, H[L - 1], 1);
+        if (lane == 31) {
+          int* s = ring + 3 * (wid * RB + (r & (RB - 1)));
+          s[0] = V[L - 1];
+          s[1] = X[L - 1];
+          s[2] = H[L - 1];
+        }
+      }
     }
     __syncthreads();
+  }
+  // the end score: lane tlen - 1's H after its last live row, the last row
+  int fin = 0;
+  // this thread's best cell: highest H, then the first row, then the
+  // reference's row-scan tie key in that row
+  int bh = 0, br = -1, bk = 0;
+#pragma unroll
+  for (int e = 0; e < L; ++e) {
+    const int ti = t0 + e;
+    if (ti == tlen - 1) fin = H[e];
+    const int st0 = max(0, BR[e] - qlen + 1), en0 = min(tlen - 1, BR[e]);
+    const int k = tie_key(ti, st0, en0, st0 + ((en0 - st0) >> 2 << 2));
+    if (BH[e] > 0 && better(BH[e], BR[e], k, bh, br, bk)) {
+      bh = BH[e];
+      br = BR[e];
+      bk = k;
+    }
+  }
+
+  // epilogue: the CTA's best cell, then the outputs of ext_tie_order
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) {
+    const int h2 = __shfl_xor_sync(FULL, bh, d);
+    const int r2 = __shfl_xor_sync(FULL, br, d);
+    const int k2 = __shfl_xor_sync(FULL, bk, d);
+    if (better(h2, r2, k2, bh, br, bk)) {
+      bh = h2;
+      br = r2;
+      bk = k2;
+    }
+  }
+  if (lane == 0) {
+    red[3 * wid] = bh;
+    red[3 * wid + 1] = br;
+    red[3 * wid + 2] = bk;
+  }
+  if (t0 <= tlen - 1 && tlen - 1 < t0 + L) out[3 * B + bi] = fin;   // score
+  __syncthreads();
+  if (tid == 0) {
+    for (int w = 1; w < nw; ++w)
+      if (better(red[3 * w], red[3 * w + 1], red[3 * w + 2], bh, br, bk)) {
+        bh = red[3 * w];
+        br = red[3 * w + 1];
+        bk = red[3 * w + 2];
+      }
+    const bool found = bh > 0;
+    const int mt = bk & ((1 << 14) - 1);
+    out[bi] = found ? bh : 0;
+    out[B + bi] = found ? mt : -1;
+    out[2 * B + bi] = found ? br - mt : -1;
   }
 }
 
@@ -332,9 +533,20 @@ int launch_global_c(const uint8_t* q, int LQ, const uint8_t* t, int T,
                                     iden, tleft, scratch, stream);
 }
 
-int threads_for(int lanes) {
-  const int t = ((lanes + 31) / 32) * 32;
-  return t < 512 ? t : 512;
+template <int L>
+int launch_ext(const uint8_t* q, int LQ, const uint8_t* t, int T,
+               const int* qlen, const int* tlen, int B, Scores sc, int* out,
+               cudaStream_t stream) {
+  const int threads = (T + 32 * L - 1) / (32 * L) * 32;
+  if (threads > (L >= 16 ? EXT_THREADS / 2 : EXT_THREADS))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)3 * (ext_ring(L) + 1) * (threads / 32) *
+                         sizeof(int) + ext_qs_bytes(LQ, T, L);
+  auto kern = wf_ext_kernel<L>;
+  const int rc = set_smem((const void*)kern, smem);
+  if (rc) return rc;
+  kern<<<B, threads, smem, stream>>>(q, LQ, t, T, qlen, tlen, B, sc, out);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -359,21 +571,21 @@ extern "C" int wf_global(const void* q, int LQ, const void* t, int T,
                 (cudaStream_t)stream);
 }
 
-// scratch: null = rows in shared memory (8 * T * 4 bytes), else a global
-// buffer of B * 8 * T ints.  besth/bestr: [B, T] per-lane accumulators
-// for the row-scan tie-order post-pass done by the wrapper.
+// lanes: target lanes a thread owns (1, 2, 4 or 16; at most 1024
+// threads, 512 at 16 lanes);
+// out [4, B] int32: max, max_t, max_q, score.
 extern "C" int wf_ext(const void* q, int LQ, const void* t, int T,
                       const void* qlen, const void* tlen, int B, int match,
-                      int mis, int go, int ge, void* besth, void* bestr,
-                      void* score, void* scratch, void* stream) {
+                      int mis, int go, int ge, int lanes, void* out,
+                      void* stream) {
   if (B == 0) return 0;
   const Scores sc{match, mis, go, ge};
-  const size_t smem = scratch ? 0 : (size_t)8 * T * sizeof(int);
-  int rc = set_smem((const void*)wf_ext_kernel, smem);
-  if (rc) return rc;
-  wf_ext_kernel<<<B, threads_for(T), smem, (cudaStream_t)stream>>>(
-      (const uint8_t*)q, LQ, (const uint8_t*)t, T, (const int*)qlen,
-      (const int*)tlen, sc, (int*)besth, (int*)bestr, (int*)score,
-      (int*)scratch);
-  return (int)cudaGetLastError();
+  auto launch = lanes == 1   ? launch_ext<1>
+                : lanes == 2 ? launch_ext<2>
+                : lanes == 4 ? launch_ext<4>
+                : lanes == 16 ? launch_ext<16>
+                             : nullptr;
+  if (!launch) return (int)cudaErrorInvalidValue;
+  return launch((const uint8_t*)q, LQ, (const uint8_t*)t, T, (const int*)qlen,
+                (const int*)tlen, B, sc, (int*)out, (cudaStream_t)stream);
 }

@@ -144,6 +144,8 @@ def profile_bt(dirs, qlen, ncol, T: int, W: Optional[int] = None):
         raise ValueError(f"unsupported device {dirs.device}")
     NL = n_levels(T)
     dirs, qlen, ncol = (x.contiguous() for x in (dirs, qlen, ncol))
+    if dirs.data_ptr() % 16:   # the kernel copies 16-byte pieces of rows
+        dirs = dirs.clone()
     ops = torch.empty((B, NL), dtype=torch.int8, device=dirs.device)
     nst = torch.empty(B, dtype=torch.int32, device=dirs.device)
     tch = torch.empty(B, dtype=torch.int32, device=dirs.device)
@@ -325,7 +327,7 @@ class DeviceMSA:
     """Batched profile-POA over bucketed (T, W) region batches."""
 
     def __init__(self, match, mismatch, gap_open, gap_ext, gap_open2=None,
-                 gap_ext2=None, buckets=BUCKETS, device="cpu"):
+                 gap_ext2=None, buckets=BUCKETS, device="cuda"):
         self.buckets = tuple(sorted(buckets))
         self.device = torch.device(device)
         if gap_open2 is None:

@@ -5,7 +5,8 @@ Counterpart of ``tidehunter_tpu/ops/wavefront.py``: the same
 oracle ``ops/ksw2.py``.  On a CUDA tensor each call launches
 one hand-written kernel (``csrc/wavefront.cu``: ``wf_global``, one warp
 per problem walking column strips; ``wf_ext``, one CTA per problem over
-anti-diagonals); on a CPU tensor it runs the plain PyTorch version in
+anti-diagonals with its state in registers and the tie order in its
+epilogue); on a CPU tensor it runs the plain PyTorch version in
 this module, a loop over anti-diagonals of ``[B, T]`` tensor ops.  A
 launch takes the rows it is given: there is no batch ladder and no
 padding beyond the caller's ``[B, LQ] x [B, T]`` rectangle.
@@ -31,14 +32,28 @@ TLB = 14                      # t_left field width (tl + 1; 0 = unset)
 TLMASK = (1 << TLB) - 1
 BESTR_UNSET = 0x7FFFFFF
 MAX_T = 8192                  # the tl + 1 field holds targets up to this
-# Shared memory a CTA may take on Hopper; rows that do not fit go to a
-# global scratch instead (csrc/wavefront.cu).
+# Shared memory a CTA may take on Hopper; wf_global's edge columns that do
+# not fit go to a global scratch instead (csrc/wavefront.cu).
 SMEM_LIMIT = 227 * 1024
-EXT_ROWS = 8
 # wf_global: problems (warps) per CTA and the widest single column tile
 # (32 lanes x 16 columns); wider targets carry an int4 edge column of LQ
 # rows per problem from tile to tile (csrc/wavefront.cu: WARPS, C).
 GLOBAL_WARPS, GLOBAL_TILE = 4, 512
+# wf_ext: target lanes a thread owns, by target bucket, when a launch has
+# at most one problem per SM (each CTA has an SM to itself: the fewest
+# lanes a thread, the shortest chain a row) and when it has more (the
+# card's issue rate: two lanes a thread share each row's shuffles and ring
+# store); csrc/wavefront.cu: launch_ext, which refuses a target wider than
+# its CTA (EXT_THREADS threads) covers at L lanes.  Measured by
+# chip_smoke.py (its "lanes wf_ext" lines).
+EXT_LANES = ((1024, 1, 2), (2048, 2, 2), (4096, 4, 4), (MAX_T, 16, 16))
+
+
+def ext_lanes(T: int, B: int, sms: int) -> int:
+    """Target lanes per thread of wf_ext for B problems of target bucket
+    T on a card with `sms` SMs."""
+    few, many = next((f, m) for width, f, m in EXT_LANES if T <= width)
+    return few if B <= sms else many
 
 
 def _check(q, qlen, t, tlen, qle=None):
@@ -57,14 +72,6 @@ def _check(q, qlen, t, tlen, qle=None):
     devs = {x.device for x in (q, t, *lens)}
     if len(devs) != 1:
         raise ValueError(f"inputs on several devices: {devs}")
-
-
-def _ext_scratch(B: int, T: int, device):
-    """None when wf_ext's rows fit in shared memory, else a global buffer
-    of B * EXT_ROWS * T ints."""
-    if EXT_ROWS * T * 4 <= SMEM_LIMIT:
-        return None
-    return torch.empty(B * EXT_ROWS * T, dtype=torch.int32, device=device)
 
 
 def _edge_scratch(B: int, LQ: int, T: int, device):
@@ -105,28 +112,30 @@ def global_batch(q, qlen, t, tlen, qle, scores=DEFAULT_SCORES,
     return iden, tleft
 
 
-def ext_batch(q, qlen, t, tlen, scores=DEFAULT_SCORES):
+def ext_batch(q, qlen, t, tlen, scores=DEFAULT_SCORES, lanes=None):
     """(max, max_t, max_q, score) per problem of a padded batch: the
     score-only extension alignment with the reference's SIMD row-scan tie
-    order (ksw2_extz2_sse.c:224-260)."""
+    order (ksw2_extz2_sse.c:224-260).  On CUDA the kernel computes the tie
+    order in its epilogue, with `lanes` target lanes a thread (1, 2, 4 or
+    16; None: ext_lanes' choice); the plain version runs ext_plain, then
+    ext_tie_order."""
     _check(q, qlen, t, tlen)
     if q.device.type == "cpu":
         besth, bestr, score = ext_plain(q, qlen, t, tlen, scores)
-    elif q.device.type == "cuda":
-        q, t, qlen, tlen = (x.contiguous() for x in (q, t, qlen, tlen))
-        B, LQ = q.shape
-        T = t.shape[1]
-        besth = torch.empty((B, T), dtype=torch.int32, device=q.device)
-        bestr = torch.empty((B, T), dtype=torch.int32, device=q.device)
-        score = torch.empty(B, dtype=torch.int32, device=q.device)
-        scratch = _ext_scratch(B, T, q.device)
-        m, x, go, ge = (int(s) for s in scores)
-        K.WF_EXT(q.data_ptr(), LQ, t.data_ptr(), T, qlen.data_ptr(),
-                 tlen.data_ptr(), B, m, x, go, ge, besth.data_ptr(),
-                 bestr.data_ptr(), score.data_ptr(), _ptr(scratch))
-    else:
+        return (*ext_tie_order(besth, bestr, qlen, tlen), score)
+    if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    return (*ext_tie_order(besth, bestr, qlen, tlen), score)
+    q, t, qlen, tlen = (x.contiguous() for x in (q, t, qlen, tlen))
+    B, LQ = q.shape
+    T = t.shape[1]
+    out = torch.empty((4, B), dtype=torch.int32, device=q.device)
+    m, x, go, ge = (int(s) for s in scores)
+    if lanes is None:
+        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+        lanes = ext_lanes(T, B, sms)
+    K.WF_EXT(q.data_ptr(), LQ, t.data_ptr(), T, qlen.data_ptr(),
+             tlen.data_ptr(), B, m, x, go, ge, lanes, out.data_ptr())
+    return tuple(out.unbind(0))
 
 
 def ext_tie_order(besth, bestr, qlen, tlen):
