@@ -13,6 +13,8 @@ Phases, each printing its result on its own line:
      on the card, exact integer equality, at the shapes the default path
      gives it, with both times (CUDA events, the kernel's runs queued
      behind a device sleep); wf_ext also at each lanes-a-thread choice;
+     profile_dp off the warp kernel's rungs (full width, the 4096 bucket)
+     also against its first version, equal and timed in the same run;
   3. the wavefront dtype probe: wf_dtype_probe against probe_plain, exact,
      in all four variants at (T=512, BT=128) and (T=200, BT=7), then the
      probe's own timing table at its defaults;
@@ -25,11 +27,20 @@ Phases, each printing its result on its own line:
      (pipeline.core.tidehunter_core); then the timed run once more under
      torch.profiler: each kernel's device ms and launches on the slice and
      the device busy share;
-  5. the full-width rung: regions that skip or escalate past the band
+  5. short and long periods end to end: 512 reads of a 60 bp unit x 60,
+     256 of 1500 bp x 6 and 128 of 3000 bp x 4 (synth_read, seed 43)
+     through the same runner and engine, one warm run then a timed run;
+     full-width rounds (K3) and the 4096 bucket must have launched; the
+     timed run's records of the first 8 reads of each population
+     byte-identical with tidehunter_core (run over a pool of host
+     processes); the timed run once more under torch.profiler;
+  6. the full-width rung: regions that skip or escalate past the band
      window must equal the host mirror banded_profile_consensus.
 The line before the last is a JSON object with every kernel's launches,
 error, times and bound (the larger of its integer ops over the card's int32
-rate and its bytes over 3.35 TB/s); the last line is the run's device
+rate and its bytes over 3.35 TB/s; a profile DP's ops count the cells the
+data needs, its bytes every lane of the rows written); the last line is the
+run's device
 record.  Any failure raises and exits non-zero without those two lines.
 Without a CUDA card it exits 2.  JAX, the JAX package, bench and
 __graft_entry__ are blocked from import: the port must not need them.
@@ -68,9 +79,13 @@ TOL = 0   # every kernel output is an integer, compared exactly
 # in a global scratch (6144, 8192).  wf_ext's lanes a thread by target
 # bucket and launch size (ops/wavefront.EXT_LANES): 1 at B <= the SM
 # count and 2 above it up to T=1024, 4 at 4096, 16 at 8192.
-# profile_dp's: the warp kernel on the W=128/256/512 rungs of T=640, the
-# first version at full width and in the 4096 bucket.  profile_bt has one
-# kernel for every rung: whole band rows or 128-lane windows a tile.
+# profile_dp's: the warp kernel on the W=128/256/512 rungs of T=640 and
+# on the 4096 bucket's W=128; the strips at full width (a warp a region at
+# T=128 with the short-period path's ~700 regions a launch; 2 columns a
+# lane over one CTA at T=256 and over clusters from T=640) and on the 4096
+# bucket's W=512; the first version on its W=256.
+# profile_bt has one kernel for every rung: whole band rows or 128-lane
+# windows a tile.
 WF_CASES = [("iden_only", 2048, 512, 512), ("iden_only", 4096, 512, 512),
             ("iden_only", 256, 128, 128), ("tleft", 256, 256, 200),
             ("tleft", 512, 256, 1024),
@@ -82,14 +97,18 @@ WF_CASES = [("iden_only", 2048, 512, 512), ("iden_only", 4096, 512, 512),
             ("ext", 8, 512, 4096), ("ext", 8, 4096, 8192)]
 MSA_CASES = [(640, 128, 512, 450), (640, 128, 8, 450), (640, 128, 1, 450),
              (640, 256, 128, 450), (640, 512, 64, 450),
-             (640, None, 64, 450), (4096, 512, 8, 3000),
-             (4096, None, 2, 3000)]
+             (640, None, 64, 450), (128, None, 704, 60),
+             (256, None, 64, 200), (2048, None, 8, 1500),
+             (4096, 128, 64, 3000), (4096, 256, 64, 3000),
+             (4096, 512, 8, 3000), (4096, None, 2, 3000)]
+WARP_RUNGS = (128, 256, 512)    # profile_dp_warp's rungs below T=4096
 # the check whose numbers stand for each kernel in the summary line: the
 # largest launch shape of the slice (for wf_ext the route of its launches
 # of more than one problem an SM, which hold most of its slice time)
 MAIN_SHAPES = {"wf_global": "iden_only (512,512) B=4096",
                "wf_ext": "ext (512,640) B=1024",
                "profile_dp": "T=640 W=128 B=512",
+               "profile_dp_full": "T=128 W=full B=704",
                "profile_bt": "T=640 W=128 B=512"}
 # wf_ext's lanes a thread timed at the slice's extension shapes, beside
 # the choice of ops/wavefront.ext_lanes
@@ -99,9 +118,16 @@ LANES = (1, 2, 4)
 PROBE_CASES = [(512, 128), (200, 7)]
 SLICE_READS = 1024
 SLICE_KERNELS = ("wf_global", "wf_ext", "profile_dp", "profile_bt")
-# kernel names in a trace -> the wrapper that launches them
+# kernel names in a trace -> the kernel (profile_dp has three)
 TRACE_NAMES = {"wf_global_kernel": "wf_global", "wf_ext_kernel": "wf_ext",
-               "profile_dp": "profile_dp", "profile_bt_warp": "profile_bt"}
+               "profile_dp_warp": "profile_dp_warp",
+               "profile_dp_strip": "profile_dp_strip",
+               "profile_dp_kernel": "profile_dp_first",
+               "profile_bt_warp": "profile_bt"}
+# phase 5: (name, reads, unit length, copies) of each population
+PERIOD_POPULATIONS = (("short", 512, 60, 60), ("amplicon", 256, 1500, 6),
+                      ("cdna", 128, 3000, 4))
+PERIOD_ORACLE_READS = 8      # reads of each population held to the oracle
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
 # int32 results per clock per SM: 64 on the INT pipe (CUDA C++ Programming
@@ -148,16 +174,22 @@ def cuda_ms(fn, reps: int) -> float:
     """Mean device time of fn over reps runs (CUDA events).  The runs queue
     behind a device sleep of ~10 ms, so that a kernel shorter than its
     wrapper's host time is timed back to back, not at the host's rate."""
+    return timed(fn, reps)[0]
+
+
+def timed(fn, reps: int = 1):
+    """(mean device ms over reps runs of fn, the last run's result), the
+    runs queued behind a device sleep as in cuda_ms."""
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     torch.cuda._sleep(20_000_000)
     start.record()
     for _ in range(reps):
-        fn()
+        out = fn()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    return start.elapsed_time(end) / reps, out
 
 
 def max_err(a, b) -> int:
@@ -187,33 +219,41 @@ class Checks:
         return self.only is None or kernel in self.only
 
     def run(self, kernel, label, kern_fn, plain_fn, work, select=None,
-            reps=5):
+            reps=5, first_fn=None):
         """Compare, then time and bound (work() -> (integer ops, bytes));
-        the main-path shape's numbers go to the summary."""
+        with first_fn, the first version too (equal, timed beside); the
+        main-path shape's numbers go to the summary."""
         if not self.wants(kernel):
             return
-        got, want = kern_fn(), plain_fn()
-        if select is not None:
-            got, want = select(got), select(want)
+        sel = select or (lambda x: x)
+        plain_ms, want = timed(plain_fn)
+        got, want = sel(kern_fn()), sel(want)
         err = max_err(got, want)
+        if first_fn is not None:
+            err = max(err, max_err(sel(first_fn()), want))
         if err > TOL:
             raise AssertionError(f"{kernel} {label}: max_abs_err {err}")
         ms = cuda_ms(kern_fn, reps)
-        plain_ms = cuda_ms(plain_fn, 1)
+        first_ms = cuda_ms(first_fn, reps) if first_fn else None
         self.record(kernel, label, err, ms, plain_ms, *work(),
-                    main=label == MAIN_SHAPES[kernel])
+                    main=label == MAIN_SHAPES[kernel], first_ms=first_ms)
 
-    def record(self, kernel, label, err, ms, plain_ms, ops, nbytes, main):
+    def record(self, kernel, label, err, ms, plain_ms, ops, nbytes, main,
+               first_ms=None):
         bound_ms, by = self.card.bound(ops, nbytes)
-        print(f"check {kernel} {label}: max_abs_err={err} ms={ms:.4f} "
-              f"plain_ms={plain_ms:.2f} bound_ms={bound_ms:.4f} ({by}: "
-              f"{ops:.0f} int ops, {nbytes:.0f} bytes) share of bound "
-              f"{bound_ms / ms:.4f}", flush=True)
+        first = (f" first_version_ms={first_ms:.4f} ({first_ms / ms:.2f}x)"
+                 if first_ms else "")
+        print(f"check {kernel} {label}: max_abs_err={err} ms={ms:.4f}"
+              f"{first} plain_ms={plain_ms:.2f} bound_ms={bound_ms:.4f} "
+              f"({by}: {ops:.0f} int ops, {nbytes:.0f} bytes) share of "
+              f"bound {bound_ms / ms:.4f}", flush=True)
         row = self.rows.setdefault(kernel, {"max_abs_err": 0})
         row["max_abs_err"] = max(row["max_abs_err"], err)
         if main:
             row.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                        bound_by=by)
+            if first_ms:
+                row["first_version_ms"] = first_ms
 
 
 def _mutate(rng, u, err):
@@ -262,6 +302,18 @@ def sweep_lanes(checks, label, q, ql, t, tl, sc):
         mark = " (ext_lanes' choice)" if L == chosen else ""
         print(f"lanes wf_ext {label} L={L}: ms={cuda_ms(run, 5):.4f}{mark}",
               flush=True)
+
+
+def dp_cells(qlen, ncol, W) -> float:
+    """Cells a profile DP batch needs: (j, c) in [1, qlen] x [1, ncol],
+    banded |c - j| <= W - 8 (a cell of row r = j + c - 2 at lane c - 1)."""
+    if W is None:
+        return float((qlen.double() * ncol.double()).sum())
+    j = torch.arange(1, int(qlen.max()) + 1, device=qlen.device)[None, :]
+    lo = (j - (W - 8)).clamp(min=1)
+    hi = torch.minimum(j + (W - 8), ncol[:, None])
+    n = (hi - lo + 1).clamp(min=0) * (j <= qlen[:, None])
+    return float(n.double().sum())
 
 
 def phase_kernels(checks, dev, lanes=True):
@@ -323,17 +375,22 @@ def phase_kernels(checks, dev, lanes=True):
         rows = torch.arange(2 * T - 1, device=dev)[:, None]
         live = rows < (qlen + st.ncol - 1)[None, :]      # [2T-1, B]
         label = f"T={T} W={W or 'full'} B={B}"
-        # a region runs qlen + ncol - 1 rows of W (or T) lanes and writes
-        # one direction byte per lane of those rows
-        dp_cells = float(live.sum()) * (W or T)
-        dp_ops = OPS_PER_CELL["profile_dp " + ("banded" if W else "full")]
-        inputs = (unit, qlen, st.ncol, sub, wl, wdel, wl2, wdel2)
-        checks.run("profile_dp", label,
+        # the work is the cells the data needs; a region writes one
+        # direction byte per lane of its qlen + ncol - 1 rows, dead lanes 0
+        dp_ops = (OPS_PER_CELL["profile_dp " + ("banded" if W else "full")]
+                  * dp_cells(qlen, st.ncol, W))
+        dp_bytes = (_nbytes(unit, qlen, st.ncol, sub, wl, wdel, wl2, wdel2)
+                    + float(live.sum()) * (W or T))
+        # K3 (full width) and K4 (banded) are one entry point; every shape
+        # off the warp kernel's rungs is timed against the first version
+        off_rungs = W is None or T >= 4096 or W not in WARP_RUNGS
+        checks.run("profile_dp_full" if W is None else "profile_dp", label,
                    lambda: MD.profile_dp(*args),
                    lambda: MD.profile_dp_plain(*args),
-                   lambda: (dp_ops * dp_cells,
-                            _nbytes(*inputs) + dp_cells),
-                   select=lambda d: (d[live],))
+                   lambda: (dp_ops, dp_bytes),
+                   select=lambda d: (d[live],),
+                   first_fn=(lambda: MD.profile_dp(*args, first_version=True))
+                   if off_rungs else None)
         dirs = MD.profile_dp(*args)
         bt = MD.profile_bt(dirs, qlen, st.ncol, T, W)
         steps = float(bt[1].double().sum())   # path length, a byte a step
@@ -415,6 +472,35 @@ def serialize(reads, results, mtp):
     return buf.getvalue()
 
 
+def _oracle_one(rec, mtp) -> str:
+    from tidehunter_tpu_torch.pipeline.core import tidehunter_core
+
+    return serialize([rec], [tidehunter_core(rec.seq, mtp)], mtp)
+
+
+def oracle_records(reads, mtp):
+    """Each read's records by the host oracle (tidehunter_core), serialized,
+    computed over a pool of host processes (one core left to this one);
+    the pool is shut down before returning."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    n = max(1, min(len(reads), (os.cpu_count() or 2) - 1))
+    with ProcessPoolExecutor(n, mp_context=multiprocessing.get_context(
+            "spawn")) as pool:
+        return list(pool.map(_oracle_one, reads, [mtp] * len(reads)))
+
+
+def records_by_read(text: str) -> dict:
+    """FASTA records (the default output format) grouped by read name."""
+    out = {}
+    lines = text.splitlines(keepends=True)
+    for head, seq in zip(lines[::2], lines[1::2]):
+        name = head[1:].split("_rep", 1)[0]
+        out[name] = out.get(name, "") + head + seq
+    return out
+
+
 def phase_slice(tmp, dev):
     from tidehunter_tpu_torch import _kernels as K
     from tidehunter_tpu_torch.engine import Engine
@@ -460,8 +546,8 @@ def phase_slice(tmp, dev):
     idle = [k for k, v in launches.items() if v <= 0]
     if idle:
         raise AssertionError(f"kernels not launched by the slice: {idle}")
-    trace_slice(lambda: runner.run(fa, mtp, out=io.StringIO(),
-                                   process_chunk=engine), dev)
+    trace_run(lambda: runner.run(fa, mtp, out=io.StringIO(),
+                                 process_chunk=engine), dev, "slice")
     if metrics.reads != n_reads or metrics.cons_records < n_reads // 2:
         raise AssertionError(f"slice produced {metrics.cons_records} records"
                              f" for {metrics.reads} reads")
@@ -484,10 +570,10 @@ def phase_slice(tmp, dev):
     return launches
 
 
-def trace_slice(run, dev):
+def trace_run(run, dev, label):
     """run() once more under torch.profiler: device ms and launches of
-    every kernel by name and of each slice kernel, and the device busy
-    share (the union of kernel and copy intervals over the wall)."""
+    every kernel by name and of each kernel of TRACE_NAMES, and the device
+    busy share (the union of kernel and copy intervals over the wall)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -497,13 +583,16 @@ def trace_slice(run, dev):
         run()
         sync(dev)
         wall_ms = (time.perf_counter() - t0) * 1e3
-    spans, by_name = [], {}
+    spans, by_name, glob_ms = [], {}, []
     for ev in prof.events():
         if ev.device_type != DeviceType.CUDA:
             continue
         spans.append((ev.time_range.start, ev.time_range.end))
         name = ev.name.replace("(anonymous namespace)::", "")
         name = name.split("(")[0].removeprefix("void ")
+        if "wf_global_kernel" in name:
+            glob_ms.append((ev.time_range.start,
+                            (spans[-1][1] - spans[-1][0]) / 1e3))
         ms, n = by_name.get(name, (0.0, 0))
         by_name[name] = (ms + (spans[-1][1] - spans[-1][0]) / 1e3, n + 1)
     busy_us, end = 0.0, float("-inf")
@@ -511,21 +600,158 @@ def trace_slice(run, dev):
         if b > end:
             busy_us += b - max(a, end)
             end = b
-    per_kernel = {k: [0.0, 0] for k in SLICE_KERNELS}
+    per_kernel = {k: [0.0, 0] for k in TRACE_NAMES.values()}
     for name, (ms, n) in sorted(by_name.items(), key=lambda x: -x[1][0]):
-        print(f"slice trace: {name}: {ms:.3f} ms in {n} launches",
+        print(f"{label} trace: {name}: {ms:.3f} ms in {n} launches",
               flush=True)
         key = next((v for k, v in TRACE_NAMES.items() if k in name), None)
         if key:
             per_kernel[key][0] += ms
             per_kernel[key][1] += n
     busy_ms = busy_us / 1e3
-    print("slice trace summary: " + json.dumps({
+    print(f"{label} trace summary: " + json.dumps({
         "wall_ms": round(wall_ms, 3), "device_busy_ms": round(busy_ms, 3),
         "device_busy_share": round(busy_ms / wall_ms, 5),
         "device_ms_all": round(sum(ms for ms, _ in by_name.values()), 3),
         "kernels": {k: {"device_ms": round(ms, 3), "launches": n}
                     for k, (ms, n) in per_kernel.items()}}), flush=True)
+    return [ms for _, ms in sorted(glob_ms)]
+
+
+class LaunchShapes:
+    """Records the (T, W, B) of every profile_dp call of the device MSA
+    and the (LQ, LT, B) of every wf_global call of the engine while active
+    (the calls themselves are unchanged)."""
+
+    def __init__(self):
+        from tidehunter_tpu_torch.ops import msa_device as MD
+        from tidehunter_tpu_torch.ops import wavefront as WF
+
+        self.md, self.wf, self.calls, self.glob = MD, WF, [], []
+        self.orig, self.orig_g = MD.profile_dp, WF.global_batch
+
+    def __enter__(self):
+        def rec(unit, *args, **kw):
+            W = kw.get("W", args[8] if len(args) > 8 else None)
+            self.calls.append((args[2].shape[2], W, unit.shape[0]))
+            return self.orig(unit, *args, **kw)
+
+        def rec_g(q, ql, t, *args, **kw):
+            self.glob.append((q.shape[1], t.shape[1], q.shape[0]))
+            return self.orig_g(q, ql, t, *args, **kw)
+
+        self.md.profile_dp, self.wf.global_batch = rec, rec_g
+        return self
+
+    def __exit__(self, *exc):
+        self.md.profile_dp, self.wf.global_batch = self.orig, self.orig_g
+
+    def summary(self) -> str:
+        by = {}
+        for T, W, B in self.calls:
+            n, lo, hi = by.get((T, W), (0, B, B))
+            by[(T, W)] = (n + 1, min(lo, B), max(hi, B))
+        return "; ".join(f"T={T} W={W or 'full'}: {n} launches, B "
+                         f"{lo}-{hi}" for (T, W), (n, lo, hi) in
+                         sorted(by.items(), key=lambda x: (x[0][0],
+                                                           x[0][1] or 0)))
+
+
+def phase_periods(tmp, dev):
+    """Short and long periods end to end (PERIOD_POPULATIONS): reads/s,
+    stage timers and launches of the timed run, the profile_dp shapes it
+    launched, the timed run once more under torch.profiler, and the timed
+    run's records of the first PERIOD_ORACLE_READS reads of each
+    population against tidehunter_core.  Returns the launches of the timed
+    run, K3's as its full-width rounds."""
+    from tidehunter_tpu_torch import _kernels as K
+    from tidehunter_tpu_torch.engine import Engine
+    from tidehunter_tpu_torch.evals.synth import synth_read
+    from tidehunter_tpu_torch.io.fastx import FastxRecord
+    from tidehunter_tpu_torch.params import Params
+    from tidehunter_tpu_torch.pipeline import runner
+    from tidehunter_tpu_torch.utils.metrics import METRICS
+
+    rng = np.random.default_rng(43)
+    pops = []
+    for name, n, unit_len, copies in PERIOD_POPULATIONS:
+        pops.append([FastxRecord(name=f"{name}_{i}", comment="",
+                                 seq=synth_read(rng, unit_len, copies))
+                     for i in range(n)])
+    reads = [r for pop in pops for r in pop]
+    fa = os.path.join(tmp, "periods.fa")
+    with open(fa, "w") as f:
+        f.writelines(f">{r.name}\n{r.seq}\n" for r in reads)
+    mtp = Params()
+    mtp.chunk_read_n = 512
+    engine = Engine(mtp, device=dev.type)
+    t0 = time.perf_counter()
+    runner.run(fa, mtp, out=io.StringIO(), process_chunk=engine)
+    sync(dev)
+    warm_s = time.perf_counter() - t0
+
+    METRICS.reset()
+    K.reset_launches()
+    sink = io.StringIO()
+    with LaunchShapes() as shapes:
+        t0 = time.perf_counter()
+        metrics = runner.run(fa, mtp, out=sink, process_chunk=engine)
+        sync(dev)
+        wall = time.perf_counter() - t0
+    launches = {k: v for k, v in K.launches().items() if k in SLICE_KERNELS}
+    snap = METRICS.snapshot()
+    full = int(snap.get("msa_full_rounds", 0))
+    mix = ", ".join(f"{n} of {u} bp x {c}"
+                    for _, n, u, c in PERIOD_POPULATIONS)
+    print(f"periods: {len(reads)} reads ({mix}) in {wall:.3f} s = "
+          f"{len(reads) / wall:.2f} reads/s (warm run {warm_s:.3f} s); "
+          f"consensus records {metrics.cons_records}; "
+          f"launches {json.dumps(launches)}; msa_full_rounds {full}; "
+          f"regions past the largest bucket (host rule) "
+          f"{int(snap.get('msa_host_oversize', 0))}", flush=True)
+    print("periods stages: " + " ".join(
+        f"{k}={v}" for k, v in sorted(snap.items())), flush=True)
+    print(f"periods profile_dp launches: {shapes.summary()}", flush=True)
+    if full <= 0:
+        raise AssertionError("the periods path ran no full-width round")
+    if not any(T == 4096 for T, _, _ in shapes.calls):
+        raise AssertionError("the periods path did not reach the 4096 "
+                             "bucket")
+    idle = [k for k, v in launches.items() if v <= 0]
+    if idle:
+        raise AssertionError(f"kernels not launched by the periods path: "
+                             f"{idle}")
+    if metrics.reads != len(reads) or metrics.cons_records < len(reads) // 2:
+        raise AssertionError(f"periods produced {metrics.cons_records} "
+                             f"records for {metrics.reads} reads")
+    # wf_global's launches in the traced run, in order, beside their shapes
+    with LaunchShapes() as traced:
+        glob_ms = trace_run(lambda: runner.run(fa, mtp, out=io.StringIO(),
+                                               process_chunk=engine), dev,
+                            "periods")
+    if len(glob_ms) == len(traced.glob):
+        print("periods trace wf_global launches: " + "; ".join(
+            f"({lq},{lt}) B={b} {ms:.3f} ms"
+            for (lq, lt, b), ms in zip(traced.glob, glob_ms)), flush=True)
+
+    got = records_by_read(sink.getvalue())
+    check = [r for pop in pops for r in pop[:PERIOD_ORACLE_READS]]
+    t0 = time.perf_counter()
+    want = oracle_records(check, mtp)
+    oracle_s = time.perf_counter() - t0
+    bad = [r.name for r, w in zip(check, want) if got.get(r.name, "") != w]
+    if bad:
+        raise AssertionError(f"periods records differ from the oracle: "
+                             f"{bad}")
+    for name, *_ in PERIOD_POPULATIONS:
+        recs = [w for r, w in zip(check, want)
+                if r.name.startswith(name + "_")]
+        print(f"periods oracle {name}: the timed run's records of its first "
+              f"{len(recs)} reads ({sum(w.count('>') for w in recs)} "
+              f"records) byte-identical with tidehunter_core", flush=True)
+    print(f"periods oracle: {len(check)} reads in {oracle_s:.1f} s over a "
+          f"pool of host processes", flush=True)
+    return {**launches, "profile_dp_full": full}
 
 
 def phase_full_width(dev):
@@ -568,10 +794,13 @@ KERNEL_META = {
                   "tidehunter_tpu/ops/wavefront.py:154"),
     "wf_ext": ("tidehunter_tpu_torch/csrc/wavefront.cu",
                "tidehunter_tpu/ops/wavefront.py:333"),
-    # one kernel serves both profile DP variants; the banded one (:256) is
-    # the first rung of every region, the full one is at :87
+    # one entry point serves both profile DP variants: the banded one
+    # (launches from the slice) and the full-width one (launches: the
+    # periods path's full-width rounds, one launch a round)
     "profile_dp": ("tidehunter_tpu_torch/csrc/profile_dp.cu",
                    "tidehunter_tpu/ops/msa_device.py:256"),
+    "profile_dp_full": ("tidehunter_tpu_torch/csrc/profile_dp.cu",
+                        "tidehunter_tpu/ops/msa_device.py:87"),
     "profile_bt": ("tidehunter_tpu_torch/csrc/profile_bt.cu",
                    "tidehunter_tpu/ops/msa_device.py:479"),
     "wf_dtype_probe": ("tidehunter_tpu_torch/csrc/wf_dtype_probe.cu",
@@ -637,6 +866,10 @@ def main(argv=None) -> int:
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
     with tempfile.TemporaryDirectory() as tmp:
         launches.update(phase_slice(tmp, dev))
+        t0 = time.perf_counter()
+        launches["profile_dp_full"] = phase_periods(tmp, dev)[
+            "profile_dp_full"]
+        print(f"periods phase: {time.perf_counter() - t0:.1f} s", flush=True)
     phase_full_width(dev)
 
     rows = []
@@ -651,8 +884,9 @@ def main(argv=None) -> int:
                      # no single PyTorch call computes an affine-gap DP
                      # wavefront, a profile-POA DP or its backtrack
                      "library_ms": None})
-        if "variants_ms" in row:
-            rows[-1]["variants_ms"] = row["variants_ms"]
+        for extra in ("variants_ms", "first_version_ms"):
+            if extra in row:
+                rows[-1][extra] = row[extra]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,11 +1,12 @@
 """The port's CUDA sources for the redesigned kernels, run on the CPU.
 
 csrc/wavefront.cu (``wf_global``, ``wf_ext``), csrc/profile_dp.cu
-(``profile_dp``, both its warp kernel and its first version) and
-csrc/profile_bt.cu (``profile_bt``) are compiled with the host's C++
-compiler over tests/cuda_shim.h, which emulates the CUDA subset they use
-(threads, warp shuffles,
-barriers, shared memory, cp.async copies, the DPX intrinsics), and called
+(``profile_dp``: its warp kernel and its strips, one CTA or a cluster a
+region; ``profile_dp_first``, the first version) and csrc/profile_bt.cu
+(``profile_bt``) are compiled with the host's C++ compiler over
+tests/cuda_shim.h, which emulates the CUDA subset they use (threads, warp
+shuffles, barriers, shared memory, cp.async copies, thread-block clusters
+and their distributed shared memory, the DPX intrinsics), and called
 through the same C entry points and argument lists that _kernels.py
 binds.  Every output must equal the port's plain version exactly.  This
 runs the kernels' own index arithmetic, shuffles, tiles and epilogues
@@ -38,6 +39,7 @@ def _translate(src: str) -> str:
     memory and the <<<...>>> launches."""
     src = src.replace("#include <cuda_runtime.h>", '#include "cuda_shim.h"')
     src = src.replace("#include <cuda_pipeline.h>", "")
+    src = src.replace("#include <cooperative_groups.h>", "")
     src = re.sub(r"extern __shared__ (\w+) (\w+)\[\];",
                  r"\1* \2 = (\1*)shim_smem;", src)
     return re.sub(r"([\w:]+(?:<[\w, ]+>)?)\s*<<<(.*?)>>>\s*\(",
@@ -61,7 +63,8 @@ def lib(tmp_path_factory):
                     "-I", str(out), "-o", str(so), *cpps], check=True)
     dll = ctypes.CDLL(str(so))
     fns = {}
-    for k in (K.WF_GLOBAL, K.WF_EXT, K.PROFILE_DP, K.PROFILE_BT):
+    for k in (K.WF_GLOBAL, K.WF_EXT, K.PROFILE_DP, K.PROFILE_DP_FIRST,
+              K.PROFILE_BT):
         fn = getattr(dll, k.name)
         fn.argtypes = [*k.argtypes, ctypes.c_void_p]
         fn.restype = ctypes.c_int
@@ -114,19 +117,15 @@ def test_wf_global_source_matches_plain(lib, B, LQ, T, scratch):
         np.testing.assert_array_equal(tleft, wt.numpy())
 
 
-# (T, W, B, unit length): the warp kernel on each band rung, the first
-# version at full width and at a band width the rungs do not use
-@pytest.mark.parametrize("T,W,B,L", [
-    (200, 128, 5, 150), (300, 256, 3, 220), (640, 512, 2, 450),
-    (160, None, 2, 120), (192, 136, 2, 150)])
-def test_profile_dp_source_matches_plain(lib, T, W, B, L):
-    rng = np.random.default_rng(T)
+def _dp_round(rng, T, B, lens):
+    """One unit round (unit 1 against the profile of unit 0) of B regions
+    with unit lengths lens[b] = (n0, n1): the NumPy arguments of the entry
+    point, the costs and the plain version's plane."""
     units = np.full((B, 2, T), 4, np.uint8)
     ulen = np.zeros((B, 2), np.int32)
-    for b in range(B):
-        base = rng.integers(0, 4, L).astype(np.uint8)
-        for k in range(2):
-            n = L if b else L // 2 + 7 * k     # one uneven pair
+    for b, (n0, n1) in enumerate(lens):
+        base = rng.integers(0, 4, max(n0, n1)).astype(np.uint8)
+        for k, n in enumerate((n0, n1)):
             u = np.where(rng.random(n) < 0.9, base[:n], rng.integers(0, 4, n))
             units[b, k, :n] = u
             ulen[b, k] = n
@@ -136,16 +135,74 @@ def test_profile_dp_source_matches_plain(lib, T, W, B, L):
     args = [torch.from_numpy(units[:, 1].copy()),
             torch.from_numpy(ulen[:, 1].copy()), st.ncol, sub, wl, wdel,
             wl2, wdel2]
-    want = TMD.profile_dp_plain(*args, msa.costs, W).numpy()
-    unit, qlen, ncol, sub, wl, wdel, wl2, wdel2 = (
-        a.contiguous().numpy() for a in args)
+    return [a.contiguous().numpy() for a in args], msa.costs, args
+
+
+def _dp_check(lib, entry, T, W, B, lens, seed, *extra):
+    """The entry point's plane equals profile_dp_plain's on every row a
+    region writes (dead lanes 0), and rows past qlen + ncol - 1 stay
+    untouched."""
+    (unit, qlen, ncol, sub, wl, wdel, wl2, wdel2), costs, targs = _dp_round(
+        np.random.default_rng(seed), T, B, lens)
+    want = TMD.profile_dp_plain(*targs, costs, W).numpy()
     dirs = np.full((2 * T - 1, B, W or T), 0x77, np.uint8)
-    rc = lib["profile_dp"](_p(unit), T, _p(sub), _p(wl), _p(wdel), _p(wl2),
-                           _p(wdel2), _p(qlen), _p(ncol), B, T, W or 0,
-                           *msa.costs, _p(dirs), None)
+    rc = lib[entry](_p(unit), T, _p(sub), _p(wl), _p(wdel), _p(wl2),
+                    _p(wdel2), _p(qlen), _p(ncol), B, T, W or 0, *costs,
+                    _p(dirs), *extra, None)
     assert rc == 0
     live = np.arange(2 * T - 1)[:, None] < (qlen + ncol - 1)[None, :]
     np.testing.assert_array_equal(dirs[live], want[live])
+    assert (dirs[~live] == 0x77).all()
+
+
+# (T, W, B, unit length): the warp kernel on each band rung; the strips
+# at full width (one warp a region) and at a band width the rungs do not
+# use
+@pytest.mark.parametrize("T,W,B,L", [
+    (200, 128, 5, 150), (300, 256, 3, 220), (640, 512, 2, 450),
+    (160, None, 2, 120), (192, 136, 2, 150)])
+def test_profile_dp_source_matches_plain(lib, T, W, B, L):
+    lens = [(L // 2, L // 2 + 7)] + [(L, L)] * (B - 1)    # one uneven pair
+    _dp_check(lib, "profile_dp", T, W, B, lens, T)
+
+
+# (T, W, B, SMs the launcher sees): a region a warp (T <= 128, a partial
+# last CTA, banded too), two to eight skewed warps in one CTA (1 SM, or few
+# warps) or over a cluster of 2 or 4 CTAs (132 SMs), banded with warps that
+# skip most rows or whole rounds; uneven pairs, a unit longer than the
+# profile, a one-base unit
+@pytest.mark.parametrize("T,W,B,sms", [
+    (128, None, 6, 132), (256, None, 3, 132), (384, 200, 2, 132),
+    (512, None, 2, 132), (640, None, 3, 1), (640, None, 3, 132),
+    (768, 136, 2, 1), (1024, 264, 2, 132), (1280, None, 1, 132),
+    (32, None, 5, 132), (64, 40, 3, 132), (160, None, 3, 1),
+    (256, 72, 2, 132), (384, None, 2, 132), (640, 136, 2, 1)],
+    ids=["T128", "T256", "T384_W200", "T512", "T640_cta", "T640_cluster2",
+         "T768_W136_cta", "T1024_W264_cluster2", "T1280_cluster4",
+         "T32_solo", "T64_W40_solo", "T160_cta", "T256_W72_cluster",
+         "T384_cluster", "T640_W136_cta"])
+def test_profile_dp_strips_match_plain(lib, monkeypatch, T, W, B, sms):
+    monkeypatch.setenv("CUDA_SHIM_SMS", str(sms))
+    n = T * 3 // 4
+    lens = [(n, max(n - 40, 1)), (max(n - 30, 1), n), (T // 3, 1), (n, n),
+            (n // 2, n), (1, n)][:B]
+    _dp_check(lib, "profile_dp", T, W, B, lens, T + (W or 0) + sms)
+
+
+def test_profile_dp_first_version_matches_plain(lib):
+    for T, W in ((160, None), (192, 136)):
+        _dp_check(lib, "profile_dp_first", T, W, 2, [(70, 77), (150, 150)],
+                  T)
+
+
+@pytest.mark.parametrize("entry", ["profile_dp", "profile_dp_first"])
+def test_profile_dp_source_refuses_wide_profile(lib, entry):
+    """Past the largest MSA bucket (T > 4096) both entry points refuse the
+    shape before any access."""
+    one = np.ones(1, np.int32)
+    rc = lib[entry](_p(np.zeros(1, np.uint8)), 1, *(_p(one),) * 7, 1, 4097,
+                    0, 4, 2, 4, 24, 1, 24, _p(np.zeros(1, np.uint8)), None)
+    assert rc == 1                            # cudaErrorInvalidValue
 
 
 # (B, LQ, T, lanes a thread): one and several warps, a partial last warp,

@@ -1,12 +1,15 @@
 """Index maps of the port's redesigned kernels, written once in NumPy.
 
 csrc/wavefront.cu's ``wf_global`` and ``wf_ext``, csrc/profile_dp.cu's
-banded ``profile_dp_warp`` and csrc/profile_bt.cu's ``profile_bt_warp``
-compute the same integers as their plain versions in another order: state
-in registers, values crossing lanes by shuffles, tiles prefetched into
-shared memory.  The models below follow each schedule step by step (K1:
-lane lag, column tiles, the edge column carried between tiles; K4: the
-band window held as 32 lanes x W/32 registers and shifted per row; K5: the
+banded ``profile_dp_warp`` and its ``profile_dp_strip`` and
+csrc/profile_bt.cu's ``profile_bt_warp`` compute the same integers as
+their plain versions in another order: state in registers, values
+crossing lanes by shuffles, tiles prefetched into shared memory.  The
+models below follow each schedule step by step (K1: lane lag, column
+tiles, the edge column carried between tiles; K4: the band window held as
+32 lanes x W/32 registers and shifted per row; K3: fixed column strips,
+H by row parity, warps skewed by S rows with a ring of left columns,
+asserting that every ring entry a live cell reads holds its row; K5: the
 walk over a ring of prefetched tiles of rows, asserting that every byte it
 reads lies in the tile prefetched for it; K2: L target lanes a thread,
 warps skewed by S anti-diagonals, left neighbours by shuffle or the
@@ -354,17 +357,9 @@ def test_profile_dp_window_matches_plain(T, W):
                                       _live(want, qlen, ncol, b))
 
 
-def test_profile_dp_window_matches_jax(monkeypatch):
-    monkeypatch.setattr(MD, "INTERPRET", True)
-    monkeypatch.setattr(MD, "_B_CAP", B)
-    T, W = 256, 128
-    lens = [(200, 190), (180, 185), (250, 256), (1, 120), (140, 150),
-            (90, 60), (230, 240), (256, 256)]
-    (unit, qlen, ncol, sub, wl, wdel, wl2, wdel2, costs, unit0,
-     len0) = _round_inputs(5, T, lens)
-    got = profile_dp_model(unit, qlen, ncol, sub, wl, wdel, wl2, wdel2,
-                           costs, W)
-
+def _jax_dirs(T, W, unit, qlen, ncol, unit0, len0):
+    """The JAX package's direction plane for the round _round_inputs made
+    (its Pallas kernel; the caller sets interpret mode)."""
     jm = MD.DeviceMSA(2, 4, 4, 2, **GAPS)
     run_dp, Bj, LQplus = jm._dp_run(T, W, B)
     assert Bj == B
@@ -376,10 +371,206 @@ def test_profile_dp_window_matches_jax(monkeypatch):
     ju, jq = jnp.asarray(unit.astype(np.int32)), jnp.asarray(qlen)
     jsub, jwdel, jwl, jwdel2, jwl2, qbuf = jm.scores_step(
         jc, jn, jcol, ju, lqplus=LQplus)
-    np.testing.assert_array_equal(np.asarray(jsub), sub)
     maxr = jnp.max(jq + jcol).reshape(1, 1)
-    jdirs = np.asarray(run_dp(maxr, qbuf, jsub, jwl, jwdel, jwl2, jwdel2,
-                              jq.reshape(-1, 1), jcol.reshape(-1, 1)))
+    return jsub, np.asarray(run_dp(maxr, qbuf, jsub, jwl, jwdel, jwl2,
+                                   jwdel2, jq.reshape(-1, 1),
+                                   jcol.reshape(-1, 1)))
+
+
+def test_profile_dp_window_matches_jax(monkeypatch):
+    monkeypatch.setattr(MD, "INTERPRET", True)
+    monkeypatch.setattr(MD, "_B_CAP", B)
+    T, W = 256, 128
+    lens = [(200, 190), (180, 185), (250, 256), (1, 120), (140, 150),
+            (90, 60), (230, 240), (256, 256)]
+    (unit, qlen, ncol, sub, wl, wdel, wl2, wdel2, costs, unit0,
+     len0) = _round_inputs(5, T, lens)
+    got = profile_dp_model(unit, qlen, ncol, sub, wl, wdel, wl2, wdel2,
+                           costs, W)
+    jsub, jdirs = _jax_dirs(T, W, unit, qlen, ncol, unit0, len0)
+    np.testing.assert_array_equal(np.asarray(jsub), sub)
+    for b in range(B):
+        np.testing.assert_array_equal(_live(got, qlen, ncol, b),
+                                      _live(jdirs, qlen, ncol, b))
+
+
+# ------------------------------------------------------------------ K3 --
+
+
+def profile_dp_strip_model(unit, qlen, ncol, sub, wl, wdel, wl2, wdel2,
+                           costs, W, L, nw):
+    """Direction plane by profile_dp_strip's schedule: warp w owns columns
+    [32 L w, 32 L (w + 1)) (nw warps; columns past T are dead), H by row
+    parity, E, F, G of the row above, all per column and never shifted.
+    In round n warp w runs rows [(n - w) S, (n - w + 1) S): each column
+    reads its left neighbour's state before the row, the warp's first
+    column its left warp's ring entry of row r - 1 (as it stood at the
+    round's barrier), or the column-0 boundary.  Banded, a warp skips a
+    row whose window misses its strip outright (no store, no ring entry);
+    a warp with no live cell in a row leaves its state alone and writes
+    zeros; a warp whose columns
+    are all live and none is the band-exit column tdl updates every
+    column, else only the live ones.  Each warp writes its last column to
+    its right neighbour's ring after every row; the model asserts that
+    every entry a live cell reads holds its row, then and at the round's
+    end.  Each lane reads its unit codes j = r - t from the unit staged
+    with 4 outside [0, qlen), and the model asserts that every read lies
+    inside the staged bytes."""
+    oi, ei, od, oi2, ei2, od2 = (int(c) for c in costs)
+    S, = _csrc("profile_dp.cu", r"constexpr int STRIP_S = (\d+);")
+    RB = S * _csrc("profile_dp.cu",
+                   r"constexpr int STRIP_RB = (\d+) \* STRIP_S;")[0]
+    nb, T = wl.shape
+    SW = 32 * L
+    NC = nw * SW
+    wb = (W or 0) - 8
+    dirs = np.zeros((2 * T - 1, nb, W or T), np.uint8)
+    NEG = TMD.NEG
+
+    def ins0(g):
+        return max(-(oi + g * ei), -(oi2 + g * ei2))
+
+    pad = NC - T
+    for b in range(nb):
+        Lq, Tn = int(qlen[b]), int(ncol[b])
+        nrows = Lq + Tn - 1
+        col = np.arange(NC)
+        inT = col < T
+        sb = np.pad(sub[b].astype(np.int64), ((0, 0), (0, pad)))
+        wd = np.pad(wdel[b].astype(np.int64), (0, pad))
+        wd2 = np.pad(wdel2[b].astype(np.int64), (0, pad))
+        top = np.where(inT, np.maximum(-(od + np.pad(wl[b], (0, pad))),
+                                       -(od2 + np.pad(wl2[b], (0, pad)))),
+                       NEG)
+        A0 = np.where(bool(W) & (col >= wb), NEG, top).astype(np.int64)
+        A = [A0.copy(), A0.copy()]
+        E1, E2, F1, F2, G = (np.full(NC, NEG, np.int64) for _ in range(5))
+        UO = T + 4                           # staged code j at UO + j
+        UB = (2 * T + unit.shape[1] + 16 + 15) // 16 * 16
+        ring = [[None] * RB for _ in range(nw)]     # (row, H, G, F1, F2)
+        rounds = (nrows + (nw - 1) * S + S - 1) // S if nrows > 0 else 0
+        for n in range(rounds):
+            snap = [list(x) for x in ring]
+            reads = []
+            for w in range(nw):
+                wlo, whi = w * SW, w * SW + SW - 1
+                cs = slice(wlo, whi + 1)
+                c = col[cs]
+                rb = (n - w) * S
+                assert rb % 2 == 0
+                for r in range(max(rb, 0), min(rb + S, nrows)):
+                    P = r & 1
+                    off = TMD.band_base(r, T, W) if W else 0
+                    if W and (off + W <= wlo or off > whi):
+                        continue
+                    lo, hi = max(r - Lq + 1, 0), min(r, Tn - 1)
+                    tdl = -1
+                    if W:
+                        lo = max(lo, (r - wb + 1) >> 1)
+                        hi = min(hi, (r + wb) >> 1)
+                        tdl = -1 if (r - wb) & 1 else (r - wb) >> 1
+                    # the column left of each: own neighbours before the row
+                    if w == 0:
+                        left = (ins0(r) if r else 0, ins0(r + 1), NEG, NEG)
+                    else:
+                        e = snap[w][(r - 1) % RB]
+                        if lo <= wlo <= hi:          # a live cell reads it
+                            assert e is not None and e[0] == r - 1, (b, r, w)
+                            reads.append((w, (r - 1) % RB, r - 1))
+                        left = (NEG,) * 4 if e is None else e[1:]
+                    hm = np.concatenate([[left[0]], A[P][wlo:whi]])
+                    g = np.concatenate([[left[1]], G[wlo:whi]])
+                    f1 = np.concatenate([[left[2]], F1[wlo:whi]])
+                    f2 = np.concatenate([[left[3]], F2[wlo:whi]])
+                    pk = np.zeros(SW, np.int64)
+                    if lo <= hi and lo <= whi and hi >= wlo:
+                        # a lane's 4 codes: bytes [a, a + 8) hold them
+                        t0 = c[::4]
+                        a = UO + r - t0[t0 < T] - 3
+                        assert (a >= 0).all() and (a // 4 * 4 + 8 <= UB).all()
+                        j = r - c
+                        code = np.where((j >= 0) & (j < Lq) & (c < T),
+                                        unit[b, np.clip(j, 0, Lq - 1)], 4)
+                        inner = (lo <= wlo and hi >= whi
+                                 and not wlo <= tdl <= whi)
+                        exit_ = c == tdl
+                        g, f1, f2 = (np.where(exit_, NEG, x)
+                                     for x in (g, f1, f2))
+                        M = hm + sb[code, c]
+                        h_up = A[P ^ 1][cs]
+                        e_cont = E1[cs] - ei
+                        nE1 = np.maximum(h_up - oi - ei, e_cont)
+                        icont1 = e_cont > h_up - oi - ei
+                        e2_cont = E2[cs] - ei2
+                        nE2 = np.maximum(h_up - oi2 - ei2, e2_cont)
+                        icont2 = e2_cont > h_up - oi2 - ei2
+                        E = np.maximum(nE1, nE2)
+                        isel2 = nE2 > nE1
+                        nF1 = np.maximum(g - od, f1) - wd[cs]
+                        fcont1 = f1 >= g - od
+                        nF2 = np.maximum(g - od2, f2) - wd2[cs]
+                        fcont2 = f2 >= g - od2
+                        F = np.maximum(nF1, nF2)
+                        fsel2 = nF2 > nF1
+                        nG = np.maximum(M, E)
+                        sel = np.where(F > nG, 2, np.where(E > M, 1, 0))
+                        d = (sel | (icont1 << 2) | (fcont1 << 3)
+                             | (isel2 << 4) | (fsel2 << 5) | (icont2 << 6)
+                             | (fcont2 << 7))
+                        live = (c >= lo) & (c <= hi)
+                        assert not inner or live.all()
+                        for arr, new in ((A[P], np.maximum(nG, F)),
+                                         (E1, nE1), (E2, nE2), (F1, nF1),
+                                         (F2, nF2), (G, nG)):
+                            arr[cs] = np.where(live, new, arr[cs])
+                        pk = np.where(live, d, 0)
+                    li = c - off
+                    ok = (li >= 0) & (li < (W or T))
+                    dirs[r, b, li[ok]] = pk[ok]
+                    if w + 1 < nw:
+                        ring[w + 1][r % RB] = (r, A[P ^ 1][whi], G[whi],
+                                               F1[whi], F2[whi])
+            # nor did the left warp overwrite them in the round
+            for w, slot, row in reads:
+                assert ring[w][slot][0] == row, (b, n, w)
+    return dirs
+
+
+# (T, W, L, warps): one warp at full width; several skewed warps at a
+# small L, with a padded last warp; banded, where the band leaves most
+# strips most rows
+@pytest.mark.parametrize("T,W,L,nw", [
+    (128, None, 4, 1), (160, None, 1, 5), (160, None, 2, 3),
+    (160, 40, 1, 5), (192, 72, 2, 3), (256, 40, 1, 8), (256, 72, 4, 2)])
+def test_profile_dp_strips_match_plain(T, W, L, nw):
+    lens = [(T, T), (T - 3, T), (T, T - 5), (1, T // 2), (T // 2, 1),
+            (T // 3, T // 3 + 4), (T - 1, T - 9), (7, 9)]
+    if W:                          # keep the pairs inside the band
+        lens = [(n0, min(n1, n0 + (W - 8) // 2 - 1)) for n0, n1 in lens]
+    unit, qlen, ncol, sub, wl, wdel, wl2, wdel2, costs, _, _ = \
+        _round_inputs(T + L + (W or 0), T, lens)
+    got = profile_dp_strip_model(unit, qlen, ncol, sub, wl, wdel, wl2,
+                                 wdel2, costs, W, L, nw)
+    want = TMD.profile_dp_plain(
+        *map(torch.from_numpy, (unit, qlen, ncol, sub, wl, wdel, wl2,
+                                wdel2)), costs, W).numpy()
+    for b in range(B):
+        np.testing.assert_array_equal(_live(got, qlen, ncol, b),
+                                      _live(want, qlen, ncol, b))
+
+
+@pytest.mark.parametrize("W,L,nw", [(None, 2, 4), (136, 1, 8)])
+def test_profile_dp_strips_match_jax(monkeypatch, W, L, nw):
+    monkeypatch.setattr(MD, "INTERPRET", True)
+    monkeypatch.setattr(MD, "_B_CAP", B)
+    T = 256
+    lens = [(200, 190), (180, 185), (250, 256), (1, 120), (140, 150),
+            (90, 60), (230, 240), (256, 256)]
+    (unit, qlen, ncol, sub, wl, wdel, wl2, wdel2, costs, unit0,
+     len0) = _round_inputs(9, T, lens)
+    got = profile_dp_strip_model(unit, qlen, ncol, sub, wl, wdel, wl2,
+                                 wdel2, costs, W, L, nw)
+    _, jdirs = _jax_dirs(T, W, unit, qlen, ncol, unit0, len0)
     for b in range(B):
         np.testing.assert_array_equal(_live(got, qlen, ncol, b),
                                       _live(jdirs, qlen, ncol, b))

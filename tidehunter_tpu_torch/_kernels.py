@@ -152,12 +152,15 @@ WF_EXT = Kernel("wf_ext", [P, I, P, I, P, P, I, I, I, I, I, I, P])
 # csrc/profile_dp.cu
 PROFILE_DP = Kernel("profile_dp", [P, I, P, P, P, P, P, P, P, I, I, I,
                                    I, I, I, I, I, I, P])
+# the first version, the yardstick the routes are timed against
+PROFILE_DP_FIRST = Kernel("profile_dp_first", PROFILE_DP.argtypes)
 # csrc/profile_bt.cu
 PROFILE_BT = Kernel("profile_bt", [P, I, I, I, P, P, I, P, P, P])
 # csrc/wf_dtype_probe.cu
 WF_DTYPE_PROBE = Kernel("wf_dtype_probe", [P, P, I, I, I, I])
 
-KERNELS = (WF_GLOBAL, WF_EXT, PROFILE_DP, PROFILE_BT, WF_DTYPE_PROBE)
+KERNELS = (WF_GLOBAL, WF_EXT, PROFILE_DP, PROFILE_DP_FIRST, PROFILE_BT,
+           WF_DTYPE_PROBE)
 
 
 def reset_launches() -> None:

@@ -16,45 +16,78 @@
 // boundary values), and every live cell of a row lies at least two lanes
 // inside its band window.
 //
-// Two kernels, chosen by shape in profile_dp():
+// Three kernels, chosen by shape in profile_dp():
 //
-// profile_dp_warp (banded, W = 128, 256, 512, buckets T < 4096): one warp
-// per region, DP_WARPS regions a CTA.  Lane k holds the window's band
-// lanes [k L, k L + L), L = W / 32, in registers: H of rows r-1 and r-2
-// and E1, E2, F1, F2, G of row r-1, all in row r-1's window, and the unit
-// codes of row r's cells.  band_base steps by 0 or 1 a row, the same for
-// the whole warp, so row r's views of them (at t for H, E; at t-1 for G,
-// F and H of row r-2; the unit code one lane over) are register shifts by
-// 0 or one lane across lane boundaries with __shfl_down_sync /
-// __shfl_up_sync.  No barrier, no state in memory, no branch inside a row:
-// a lane's L cells are independent chains.  Each lane stores its L
-// direction bytes in one 32-, 64- or 128-bit store, so a row's W bytes go
-// out coalesced.  The column profile the window covers is staged in a
-// per-warp shared-memory ring, 32 columns at a time (measured faster than
-// reading it through __ldg: PERF.md, PR 3).
+// profile_dp_warp (banded, W = 128, 256, 512 in buckets T < 4096, and W = 128
+// in the 4096 bucket): one warp per region, DP_WARPS regions a CTA.  Lane k
+// holds the window's band lanes [k L, k L + L), L = W / 32, in registers: H of
+// rows r-1 and r-2 and E1, E2, F1, F2, G of row r-1, all in row r-1's window,
+// and the unit codes of row r's cells.  band_base steps by 0 or 1 a row, the
+// same for the whole warp, so row r's views of them (at t for H, E; at t-1 for
+// G, F and H of row r-2; the unit code one lane over) are register shifts by 0
+// or one lane across lane boundaries with __shfl_down_sync /
+// __shfl_up_sync.  No barrier, no state in memory, no branch inside a row: a
+// lane's L cells are independent chains.  Each lane stores its L direction
+// bytes in one 32-, 64- or 128-bit store, so a row's W bytes go out
+// coalesced.  The column profile the window covers is staged in a per-warp
+// shared-memory ring, 32 columns at a time (measured faster than reading it
+// through __ldg: PERF.md, PR 3).
 //
-// profile_dp_kernel (first version: full width, W = 0; the 4096 bucket;
-// any other W): one CTA per region, threads striding over the W (or T)
-// lanes of the row, one __syncthreads() per anti-diagonal.  The state rows
-// sit in a shared-memory ring indexed by global lane & (R-1), R a power of
-// two >= W + 2 (banded) or >= T (full).  H rotates over three rows; E1,
-// E2, F1, F2 and G ping-pong by row parity.  13 rows x R x 4 B is at most
-// 208 KB (full width at T = 4096).
+// profile_dp_strip (full width at every T, the 4096 bucket's W = 512,
+// any other W): warps own fixed column strips.  Over absolute columns a
+// cell reads only columns t and t-1 of rows r-1 and r-2, so the
+// dependencies run left only, inside a band too, and no state ever
+// shifts.  Warp w owns columns [32 L w, 32 L (w + 1)), lane k of it the L
+// columns from t0 = 32 L w + L k (L = 4 up to T = 128, else 2), with H by
+// row parity, E1, E2, F1, F2, G and the column weights wdel, wdel2 in
+// registers, loaded once; sub sits in shared memory ([5][L][32] a warp:
+// no bank conflict), read at the cell's unit code, and so does the unit,
+// a lane's L codes read with two word loads and a funnel shift.  The left
+// column comes by __shfl_up_sync inside the warp.  A region of T <= 32 L
+// is one warp, four regions a CTA, no barrier.  Wider regions take T / 32
+// L warps skewed by STRIP_S rows (warp w runs rows [(n - w) S, (n - w + 1)
+// S) in round n), each reading its left column from a ring in its own
+// shared memory that the warp on its left fills after every row, one
+// barrier a round.  A region spans a thread-block cluster of up to 8 CTAs
+// (the ring entries cross CTAs through distributed shared memory, the
+// barrier is the cluster's) when one CTA would pass 512 threads, or hold
+// more than 4 warps while the launch leaves SMs idle: the long-period
+// buckets bring few regions a launch, and one SM a region would cap them
+// at its issue rate.  Boundaries are initial state, not tests: a column's
+// H starts at the j = 0 deletion row its top cell reads (NEG where the
+// band's entry row cuts it), E, F, G at NEG, and a cell leaves its state
+// alone unless it is live; only the band's exit cell (its (j, c-1)
+// neighbour left the band) is a test.  A warp takes a row with every
+// column live and no exit cell without any test, skips the cells of a row
+// with no live column and writes its dead columns as 0; banded, it skips
+// rows whose window misses its strip.
 //
-// What bounds them: ~88 integer ops a cell, ~15 of them a dependent chain
-// from one row to the next.  The warp kernel removes the barrier and the
-// shared-memory round trips of the state; its parallelism is one warp per
-// region, so it needs hundreds of regions a launch (the slice gives 512)
-// and loses to the first version's W/32 warps per region when few come.
-// The 4096 bucket (long periods: a few regions a batch, and 255 registers
-// a thread at W = 512) keeps the first version.
+// profile_dp_kernel (first version: the 4096 bucket's W = 256;
+// entry point profile_dp_first, the yardstick chip_smoke.py times the
+// other routes against): one CTA per region, threads striding over the W
+// (or T) lanes of the row, one __syncthreads() per anti-diagonal, the
+// state rows in a shared-memory ring, two dependent global loads a cell
+// (unit code, then sub).
+//
+// What bounds them: ~76-88 integer ops a cell, but every kernel here runs
+// a row of one region on one or a few warps in order, at ~0.4-0.6 us a
+// row on the H100 (PERF.md, PR 5): issue at a low IPC, not the DP's
+// dependent chain (~40 clocks a row).  The strips win where a region's
+// row spreads over many SMs (full width: 1.2x at T = 128-640, 3-5x at
+// 2048-4096); in a 128- or 256-lane band at T = 4096 a row is one or two
+// warps' work, and the warp kernel (W = 128) and the first version's
+// W / 32 warps a region (W = 256) win.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int NEG = -(1 << 30);
+// The widest profile, the largest MSA bucket (ops/msa_device.BUCKETS): the
+// entry points refuse wider ones before any access
+constexpr int PROFILE_DP_MAX_T = 4096;
 
 struct Costs {
   int oi, ei, od, oi2, ei2, od2;
@@ -406,6 +439,395 @@ __global__ void __launch_bounds__(DP_WARPS * 32) profile_dp_warp(
   }
 }
 
+// ------------------------------------------------------------ strips --
+
+constexpr int STRIP_S = 16;               // rows a warp runs between barriers
+constexpr int STRIP_RB = 4 * STRIP_S;     // ring entries (>= 2 S + 2)
+constexpr int STRIP_REGIONS = 4;          // regions a CTA, one warp each
+constexpr int STRIP_THREADS = 512;        // most threads a CTA otherwise
+constexpr int STRIP_CLUSTER = 8;          // most CTAs a region (portable)
+constexpr int STRIP_SPREAD = 4;           // warps a CTA past which a launch
+                                          // that leaves SMs idle spreads a
+                                          // region over a cluster
+
+// Bytes of the unit staged a region: code j at [T + 4 + j], 4 outside
+// [0, qlen), so a lane's codes j = r - t0 - e lie inside for every row.
+__host__ __device__ constexpr int strip_unit_bytes(int T, int LQ) {
+  return (2 * T + LQ + 16 + 15) / 16 * 16;
+}
+
+// Columns [t0, t0 + L) of one row (L <= 4): the lane's direction bytes pk
+// (byte e for column t0 + e) at dst[li], li = t0 minus the row's first
+// lane, kept inside [0, n).
+template <int L>
+__device__ __forceinline__ void put_row(uint8_t* row, int li, int n,
+                                        uint32_t pk) {
+  uint8_t* dst = row + li;
+  const bool whole = li >= 0 && li + L <= n && ((uintptr_t)dst % L) == 0;
+  if (L == 4 && whole) {
+    *reinterpret_cast<uint32_t*>(dst) = pk;
+  } else if (L == 2 && whole) {
+    *reinterpret_cast<uint16_t*>(dst) = (uint16_t)pk;
+  } else {
+#pragma unroll
+    for (int e = 0; e < L; ++e)
+      if (li + e >= 0 && li + e < n) dst[e] = (uint8_t)(pk >> (8 * e));
+  }
+}
+
+// The per-row state of a lane's L columns: H by row parity (X: the values
+// last written at a row of parity xpar, read at t-1 as row r-2 when r has
+// that parity; Y: the other, row r-1), as the plain version's two H rows;
+// E1, E2, F1, F2, G of the row above; the column deletion weights.
+template <int L>
+struct Strip {
+  int X[L], Y[L], E1[L], E2[L], F1[L], F2[L], G[L], wd[L], wd2[L];
+};
+
+// One row of the lane's columns t0 + e, unit codes qw (byte e).  hl, gl,
+// f1l, f2l: the column left of t0 (H of row r-2; G, F1, F2 of the row
+// above).  EDGE: cells outside [lo, hi] keep their state and write 0, and
+// the column tdl (the one whose (j, c-1) neighbour left the band) reads
+// G, F as NEG.  Elements run right to left, so element e reads e - 1
+// before its update.
+template <int L, bool EDGE>
+__device__ __forceinline__ void strip_row(Strip<L>& s, const int* subs,
+                                          uint32_t qw, int t0, int lo, int hi,
+                                          int tdl, int hl, int gl, int f1l,
+                                          int f2l, Costs k, uint32_t& pk) {
+#pragma unroll
+  for (int e = L - 1; e >= 0; --e) {
+    const int ti = t0 + e;
+    // M: H[j-1][c-1] at (r-2, t-1); E's h_up: H[j-1][c] at (r-1, t)
+    const int hm = e ? s.X[e - 1] : hl;
+    int g = e ? s.G[e - 1] : gl;
+    int f1 = e ? s.F1[e - 1] : f1l;
+    int f2 = e ? s.F2[e - 1] : f2l;
+    if (EDGE && ti == tdl) g = f1 = f2 = NEG;
+    const int qb = (qw >> (8 * e)) & 0xff;                  // 0..4
+    const int M = hm + subs[qb * 32 * L + e * 32];
+    const int h_up = s.Y[e];
+
+    // E (insertion, consumes unit): (r-1, t)
+    const int e_cont = s.E1[e] - k.ei;
+    const int nE1 = __viaddmax_s32(h_up, -(k.oi + k.ei), e_cont);
+    const int icont1 = e_cont > h_up - k.oi - k.ei;
+    const int e2_cont = s.E2[e] - k.ei2;
+    const int nE2 = __viaddmax_s32(h_up, -(k.oi2 + k.ei2), e2_cont);
+    const int icont2 = e2_cont > h_up - k.oi2 - k.ei2;
+    const int E = max(nE1, nE2);
+    const int isel2 = nE2 > nE1;
+
+    // F (deletion, consumes column): (r-1, t-1)
+    const int nF1 = __viaddmax_s32(g, -k.od, f1) - s.wd[e];
+    const int fcont1 = f1 >= g - k.od;
+    const int nF2 = __viaddmax_s32(g, -k.od2, f2) - s.wd2[e];
+    const int fcont2 = f2 >= g - k.od2;
+    const int F = max(nF1, nF2);
+    const int fsel2 = nF2 > nF1;
+
+    const int nG = max(M, E);
+    const int sel = F > nG ? 2 : (E > M ? 1 : 0);
+    const uint32_t d = sel | (icont1 << 2) | (fcont1 << 3) | (isel2 << 4) |
+                       (fsel2 << 5) | (icont2 << 6) | (fcont2 << 7);
+    if (EDGE && (ti < lo || ti > hi)) continue;
+    s.X[e] = __vimax3_s32(nG, nF1, nF2);
+    s.E1[e] = nE1;
+    s.E2[e] = nE2;
+    s.F1[e] = nF1;
+    s.F2[e] = nF2;
+    s.G[e] = nG;
+    pk |= d << (8 * e);
+  }
+}
+
+__device__ __forceinline__ void region_sync(int CL) {
+  if (CL > 1)
+    cooperative_groups::this_cluster().sync();
+  else
+    __syncthreads();
+}
+
+// One region's columns in strips of 32 L (L = 2 or 4): warp w of the
+// region owns columns [32 L w, 32 L (w + 1)), lane k of it the L columns
+// from t0 = 32 L w + k L.  SOLO: a region is one warp, STRIP_REGIONS
+// regions a CTA, no barrier.  Otherwise a region is nw warps over CL CTAs
+// (a thread-block cluster when CL > 1), warps skewed by STRIP_S rows: in
+// round n warp w runs rows [(n - w) S, (n - w + 1) S), reading the column
+// left of its strip from a ring its left neighbour fills (through
+// distributed shared memory across CTAs), and the region syncs once a
+// round.  Banded, a warp skips a row whose window misses its strip: no
+// live cell, no byte to write, and no right neighbour reads the row (its
+// first column is live at r + 1 only if the window at r reaches here).
+template <int L, bool SOLO>
+__global__ void __launch_bounds__(SOLO ? STRIP_REGIONS * 32 : STRIP_THREADS)
+    profile_dp_strip(const uint8_t* __restrict__ unit, int LQ,
+                     const int* __restrict__ sub, const int* __restrict__ wl,
+                     const int* __restrict__ wdel,
+                     const int* __restrict__ wl2,
+                     const int* __restrict__ wdel2,
+                     const int* __restrict__ qlen_a,
+                     const int* __restrict__ ncol_a, int B, int T, int W,
+                     int CL, Costs k, uint8_t* __restrict__ dirs) {
+  static_assert(L == 2 || L == 4, "codes are read from a word");
+  extern __shared__ int strip_s[];
+  constexpr int SW = 32 * L;              // columns a warp
+  constexpr int S = STRIP_S, RB = STRIP_RB;
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  const int nwc = blockDim.x >> 5;        // warps a CTA
+  const int rank = SOLO ? 0 : (int)(blockIdx.x % CL);
+  const int bi = SOLO ? blockIdx.x * nwc + wid : blockIdx.x / CL;
+  const int w = SOLO ? 0 : rank * nwc + wid;   // warp of the region
+  const int nw = SOLO ? 1 : CL * nwc;
+  if (SOLO && bi >= B) return;            // whole warps: no barrier follows
+  // sub of each warp's columns, [5][L][32] (lane k's element e at e * 32 +
+  // k: no bank conflict); each warp's ring of left columns; the unit
+  int* subs = strip_s + wid * 5 * SW;
+  int4* rings = reinterpret_cast<int4*>(strip_s + nwc * 5 * SW);
+  int4* ring = rings + wid * RB;
+  const int UB = strip_unit_bytes(T, LQ);
+  uint8_t* us = reinterpret_cast<uint8_t*>(rings + (SOLO ? 0 : nwc * RB)) +
+                (SOLO ? wid * UB : 0);
+  int4* ring_out = nullptr;               // the right neighbour's ring
+  if (!SOLO && w + 1 < nw) {
+    if (wid + 1 < nwc)
+      ring_out = ring + RB;
+    else
+      ring_out = cooperative_groups::this_cluster().map_shared_rank(
+          rings, rank + 1);
+  }
+
+  const int Lq = qlen_a[bi], Tn = ncol_a[bi];
+  const int nrows = Lq + Tn - 1;
+  const int wb = W - 8;
+  const int wlo = w * SW, whi = wlo + SW - 1;
+  const int t0 = wlo + lane * L;
+  const size_t ro = (size_t)bi * T;
+  const uint8_t* ur = unit + (size_t)bi * LQ;
+  const int UO = T + 4;                   // us[UO + j] = code j
+
+  // H starts at what a column's first live cell reads above it: the j = 0
+  // deletion row (full width, and band columns whose top cell lies in the
+  // band), NEG where the band's entry row cuts the column; E, F, G at NEG
+  Strip<L> s;
+#pragma unroll
+  for (int e = 0; e < L; ++e) {
+    const int ti = t0 + e;
+    const bool in = ti < T;
+#pragma unroll
+    for (int c = 0; c < 5; ++c)
+      subs[c * SW + e * 32 + lane] = in ? sub[ro * 5 + (size_t)c * T + ti] : 0;
+    s.wd[e] = in ? wdel[ro + ti] : 0;
+    s.wd2[e] = in ? wdel2[ro + ti] : 0;
+    const int del = in ? max(-(k.od + wl[ro + ti]), -(k.od2 + wl2[ro + ti]))
+                       : NEG;
+    s.X[e] = s.Y[e] = (W && ti >= wb) ? NEG : del;
+    s.E1[e] = s.E2[e] = s.F1[e] = s.F2[e] = s.G[e] = NEG;
+  }
+  {
+    const int i0 = SOLO ? lane : threadIdx.x, di = SOLO ? 32 : blockDim.x;
+    for (int i = i0; i < UB; i += di) {
+      const int j = i - UO;
+      us[i] = (j >= 0 && j < Lq) ? ur[j] : 4;
+    }
+  }
+  if (!SOLO)
+    for (int i = lane; i < RB; i += 32)
+      ring[i] = make_int4(NEG, NEG, NEG, NEG);
+  subs += lane;
+  if (!SOLO) region_sync(CL);   // rings set, every CTA of the cluster running
+  __syncwarp();
+
+  const int rounds = nrows > 0 ? (nrows + (nw - 1) * S + S - 1) / S : 0;
+  const size_t row_stride = (size_t)B * (W ? W : T);
+  uint8_t* const dreg = dirs + (size_t)bi * (W ? W : T);
+  // codes of row r: bytes [a, a + L) of us hold j = r - t0 - e reversed
+  constexpr uint32_t rev = L == 4 ? 0x0123u : 0x01u;
+  int xpar = 0;                           // the parity X holds
+  for (int n = 0; n < rounds; ++n) {
+    const int r0 = max((n - w) * S, 0);
+    int r1 = min((n - w + 1) * S, nrows);
+    // banded: base rises with r, so the round misses the strip when the
+    // window of its last row ends left of it or that of its first row
+    // starts right of it
+    if (W && r0 < r1 &&
+        (band_base(r1 - 1, T, W) + W <= wlo || band_base(r0, T, W) > whi))
+      r1 = r0;
+#pragma unroll 1
+    for (int r = r0; r < r1; ++r) {
+      int base = 0;
+      if (W) {
+        base = band_base(r, T, W);
+        if (base + W <= wlo || base > whi) continue;
+      }
+      if ((r & 1) != xpar) {              // X and Y trade places
+#pragma unroll
+        for (int e = 0; e < L; ++e) {
+          const int x = s.X[e];
+          s.X[e] = s.Y[e];
+          s.Y[e] = x;
+        }
+        xpar ^= 1;
+      }
+      // live cells: t <= r, r - t < qlen, t < ncol, |2t - r| <= wb
+      int lo = max(r - Lq + 1, 0), hi = min(r, Tn - 1), tdl = -1;
+      if (W) {
+        lo = max(lo, (r - wb + 1) >> 1);
+        hi = min(hi, (r + wb) >> 1);
+        tdl = ((r - wb) & 1) ? -1 : (r - wb) >> 1;
+      }
+      uint32_t pk = 0;
+      if (lo <= hi && lo <= whi && hi >= wlo) {
+        uint32_t qw = 0x04040404u;
+        if (t0 < T) {
+          const int a = UO + r - t0 - (L - 1);
+          const uint32_t* uw = reinterpret_cast<const uint32_t*>(us);
+          qw = __byte_perm(
+              __funnelshift_r(uw[a >> 2], uw[(a >> 2) + 1], 8 * (a & 3)), 0,
+              rev);
+        }
+        // the column left of t0 before this row
+        int hl = __shfl_up_sync(FULL, s.X[L - 1], 1);
+        int gl = __shfl_up_sync(FULL, s.G[L - 1], 1);
+        int f1l = __shfl_up_sync(FULL, s.F1[L - 1], 1);
+        int f2l = __shfl_up_sync(FULL, s.F2[L - 1], 1);
+        if (lane == 0) {
+          if (w == 0) {                   // column 0: the insertion boundary
+            hl = r ? ins0(r, k) : 0;
+            gl = ins0(r + 1, k);
+            f1l = f2l = NEG;
+          } else {
+            const int4 v = ring[(r - 1) & (RB - 1)];
+            hl = v.x;
+            gl = v.y;
+            f1l = v.z;
+            f2l = v.w;
+          }
+        }
+        if (lo <= wlo && hi >= whi && (tdl < wlo || tdl > whi))
+          strip_row<L, false>(s, subs, qw, t0, lo, hi, tdl, hl, gl, f1l, f2l,
+                              k, pk);
+        else
+          strip_row<L, true>(s, subs, qw, t0, lo, hi, tdl, hl, gl, f1l, f2l,
+                             k, pk);
+      }
+      put_row<L>(dreg + (size_t)r * row_stride, t0 - base, W ? W : T, pk);
+      // the right neighbour reads this row's last column at row r + 1: H
+      // of row r - 1 (parity of r + 1), G, F1, F2 of row r
+      if (ring_out && lane == 31)
+        ring_out[r & (RB - 1)] =
+            make_int4(s.Y[L - 1], s.G[L - 1], s.F1[L - 1], s.F2[L - 1]);
+    }
+    if (!SOLO) region_sync(CL);
+  }
+}
+
+int ring_lanes(int T, int W) {
+  const int need = W ? W + 2 : T;
+  int R = 1;
+  while (R < need) R <<= 1;
+  return R;
+}
+
+int sm_count(int* sms) {
+  int dev = 0;
+  const int rc = (int)cudaGetDevice(&dev);
+  return rc ? rc
+            : (int)cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount,
+                                          dev);
+}
+
+template <int L, bool SOLO>
+int launch_strip(const void* unit, int LQ, const void* sub, const void* wl,
+                 const void* wdel, const void* wl2, const void* wdel2,
+                 const void* qlen, const void* ncol, int B, int T, int W,
+                 int sms, Costs k, void* dirs, cudaStream_t stream) {
+  constexpr int SW = 32 * L;
+  int CL = 1, nwc = STRIP_REGIONS, grid = (B + STRIP_REGIONS - 1) /
+                                           STRIP_REGIONS;
+  if (!SOLO) {
+    // a cluster of CL CTAs a region while one CTA would pass
+    // STRIP_THREADS, or STRIP_SPREAD warps in a launch that leaves SMs
+    // idle; at most STRIP_CLUSTER
+    const int nwr = (T + SW - 1) / SW;
+    while (CL < STRIP_CLUSTER && 2 * CL <= nwr) {
+      const int n = (nwr + CL - 1) / CL;
+      if (n * 32 <= STRIP_THREADS && (n <= STRIP_SPREAD || B * CL >= sms))
+        break;
+      CL *= 2;
+    }
+    nwc = (nwr + CL - 1) / CL;   // <= 8 warps at T <= PROFILE_DP_MAX_T
+    grid = B * CL;
+  }
+  const size_t smem =
+      (size_t)nwc * (5 * SW * sizeof(int) +
+                     (SOLO ? 0 : STRIP_RB * sizeof(int4))) +
+      (size_t)(SOLO ? nwc : 1) * strip_unit_bytes(T, LQ);
+  auto kern = profile_dp_strip<L, SOLO>;
+  if (smem > 48 * 1024) {
+    const int rc = (int)cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (rc) return rc;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(nwc * 32);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = CL;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = CL > 1 ? 1 : 0;
+  const int rc = (int)cudaLaunchKernelEx(
+      &cfg, kern, (const uint8_t*)unit, LQ, (const int*)sub, (const int*)wl,
+      (const int*)wdel, (const int*)wl2, (const int*)wdel2,
+      (const int*)qlen, (const int*)ncol, B, T, W, CL, k, (uint8_t*)dirs);
+  if (rc) return rc;
+  return (int)cudaGetLastError();
+}
+
+// The strips: a region a warp of 4 columns a lane up to T = 128, else
+// skewed warps of 2 columns a lane (fastest or within 1% of L = 1, 2 and
+// 4 at every strip shape of chip_smoke.py: PERF.md, PR 5, call 3)
+int launch_strips(const void* unit, int LQ, const void* sub, const void* wl,
+                  const void* wdel, const void* wl2, const void* wdel2,
+                  const void* qlen, const void* ncol, int B, int T, int W,
+                  Costs k, void* dirs, cudaStream_t stream) {
+  int sms = 0;
+  const int rc = sm_count(&sms);
+  if (rc) return rc;
+  if (T <= 128)
+    return launch_strip<4, true>(unit, LQ, sub, wl, wdel, wl2, wdel2, qlen,
+                                 ncol, B, T, W, sms, k, dirs, stream);
+  return launch_strip<2, false>(unit, LQ, sub, wl, wdel, wl2, wdel2, qlen,
+                                ncol, B, T, W, sms, k, dirs, stream);
+}
+
+int launch_first(const void* unit, int LQ, const void* sub, const void* wl,
+                 const void* wdel, const void* wl2, const void* wdel2,
+                 const void* qlen, const void* ncol, int B, int T, int W,
+                 Costs k, void* dirs, cudaStream_t stream) {
+  const int R = ring_lanes(T, W);
+  const size_t smem = (size_t)13 * R * sizeof(int);
+  if (smem > 48 * 1024) {
+    const int rc = (int)cudaFuncSetAttribute(
+        profile_dp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (rc) return rc;
+  }
+  const int lanes = W ? W : T;
+  int threads = ((lanes + 31) / 32) * 32;
+  if (threads > 512) threads = 512;
+  profile_dp_kernel<<<B, threads, smem, stream>>>(
+      (const uint8_t*)unit, LQ, (const int*)sub, (const int*)wl,
+      (const int*)wdel, (const int*)wl2, (const int*)wdel2,
+      (const int*)qlen, (const int*)ncol, B, T, W, R, k, (uint8_t*)dirs);
+  return (int)cudaGetLastError();
+}
+
 template <int L>
 int launch_warp(const void* unit, int LQ, const void* sub, const void* wl,
                 const void* wdel, const void* wl2, const void* wdel2,
@@ -426,13 +848,6 @@ int launch_warp(const void* unit, int LQ, const void* sub, const void* wl,
   return (int)cudaGetLastError();
 }
 
-int ring_lanes(int T, int W) {
-  const int need = W ? W + 2 : T;
-  int R = 1;
-  while (R < need) R <<= 1;
-  return R;
-}
-
 }  // namespace
 
 // unit [B, LQ] uint8 (0..4), sub [B, 5, T], wl/wdel/wl2/wdel2 [B, T],
@@ -443,11 +858,13 @@ extern "C" int profile_dp(const void* unit, int LQ, const void* sub,
                           const void* ncol, int B, int T, int W, int oi,
                           int ei, int od, int oi2, int ei2, int od2,
                           void* dirs, void* stream) {
+  if (T > PROFILE_DP_MAX_T) return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
   const Costs k{oi, ei, od, oi2, ei2, od2};
   cudaStream_t st = (cudaStream_t)stream;
-  // the band rungs below the 4096 bucket take the warp kernel
-  if (T < 4096 && W == 128)
+  // the band rungs below the 4096 bucket take the warp kernel, and W = 128
+  // in it too
+  if (T <= 4096 && W == 128)
     return launch_warp<4>(unit, LQ, sub, wl, wdel, wl2, wdel2, qlen, ncol,
                           B, T, k, dirs, st);
   if (T < 4096 && W == 256)
@@ -456,20 +873,29 @@ extern "C" int profile_dp(const void* unit, int LQ, const void* sub,
   if (T < 4096 && W == 512)
     return launch_warp<16>(unit, LQ, sub, wl, wdel, wl2, wdel2, qlen, ncol,
                            B, T, k, dirs, st);
-  const int R = ring_lanes(T, W);
-  const size_t smem = (size_t)13 * R * sizeof(int);
-  if (smem > 48 * 1024) {
-    const int rc = (int)cudaFuncSetAttribute(
-        profile_dp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (rc) return rc;
-  }
-  const int lanes = W ? W : T;
-  int threads = ((lanes + 31) / 32) * 32;
-  if (threads > 512) threads = 512;
-  profile_dp_kernel<<<B, threads, smem, st>>>(
-      (const uint8_t*)unit, LQ, (const int*)sub, (const int*)wl,
-      (const int*)wdel, (const int*)wl2, (const int*)wdel2,
-      (const int*)qlen, (const int*)ncol, B, T, W, R, k, (uint8_t*)dirs);
-  return (int)cudaGetLastError();
+  // the 4096 bucket's W = 256 keeps the first version: the strips measured
+  // 0.49-0.51x of it there (a lone warp's row a step of the band), the warp
+  // kernel 0.85x (PERF.md, PR 5)
+  if (T == 4096 && W == 256)
+    return launch_first(unit, LQ, sub, wl, wdel, wl2, wdel2, qlen, ncol, B,
+                        T, W, k, dirs, st);
+  // everything else takes the strips
+  return launch_strips(unit, LQ, sub, wl, wdel, wl2, wdel2, qlen, ncol, B,
+                       T, W, k, dirs, st);
+}
+
+// The first version (profile_dp_kernel) at any shape: the yardstick that
+// chip_smoke.py times the routes above against.
+extern "C" int profile_dp_first(const void* unit, int LQ, const void* sub,
+                                const void* wl, const void* wdel,
+                                const void* wl2, const void* wdel2,
+                                const void* qlen, const void* ncol, int B,
+                                int T, int W, int oi, int ei, int od,
+                                int oi2, int ei2, int od2, void* dirs,
+                                void* stream) {
+  if (T > PROFILE_DP_MAX_T) return (int)cudaErrorInvalidValue;
+  if (B == 0) return 0;
+  return launch_first(unit, LQ, sub, wl, wdel, wl2, wdel2, qlen, ncol, B, T,
+                      W, Costs{oi, ei, od, oi2, ei2, od2}, dirs,
+                      (cudaStream_t)stream);
 }

@@ -94,13 +94,24 @@ def state_to_numpy(state: MSAState) -> Tuple[np.ndarray, ...]:
 
 
 def profile_dp(unit, qlen, ncol, sub, wl, wdel, wl2, wdel2, costs,
-               W: Optional[int] = None) -> torch.Tensor:
+               W: Optional[int] = None,
+               first_version: bool = False) -> torch.Tensor:
     """Direction plane of one unit round: [2T-1, B, T] (W None, full
     width) or [2T-1, B, W] with lane = (c-1) - band_base(r).  Rows at or
     past a problem's qlen + ncol - 1 are unspecified.
 
     unit [B, LQ] uint8 (LQ >= qlen), sub [B, 5, T], wl/wdel/wl2/wdel2
-    [B, T] and qlen/ncol [B] int32; costs = (oi, ei, od, oi2, ei2, od2)."""
+    [B, T] and qlen/ncol [B] int32; costs = (oi, ei, od, oi2, ei2, od2).
+
+    On the card (csrc/profile_dp.cu) the band rungs W = 128/256/512 below
+    the 4096 bucket and W = 128 in it take profile_dp_warp (a warp a
+    region, the window in registers); W = 256 in the 4096 bucket takes the
+    first version (profile_dp_kernel); every other shape (full width at
+    every T, W = 512 at T = 4096, any other W) takes profile_dp_strip
+    (warps own strips of 32 x L columns, over one CTA or a cluster of up
+    to 8; L = 4 up to T = 128, else 2).  first_version runs
+    profile_dp_kernel, the first port, at any shape: the yardstick
+    chip_smoke.py times the routes against."""
     B, LQ = unit.shape
     T = sub.shape[2]
     if unit.dtype != torch.uint8:
@@ -118,15 +129,21 @@ def profile_dp(unit, qlen, ncol, sub, wl, wdel, wl2, wdel2, costs,
                                 wdel2, costs, W)
     if unit.device.type != "cuda":
         raise ValueError(f"unsupported device {unit.device}")
-    if T > 4096:
-        raise ValueError("profile_dp keeps its rows in shared memory: "
-                         "T <= 4096")
+    if T > BUCKETS[-1]:
+        raise ValueError(f"profile_dp serves the MSA buckets, T <= "
+                         f"{BUCKETS[-1]}: wider regions take the host rule, "
+                         f"and the first version keeps its rows in shared "
+                         f"memory")
     args = [x.contiguous() for x in (unit, sub, wl, wdel, wl2, wdel2,
                                      qlen, ncol)]
     dirs = torch.empty((2 * T - 1, B, W or T), dtype=torch.uint8,
                        device=unit.device)
-    K.PROFILE_DP(args[0].data_ptr(), LQ, *(a.data_ptr() for a in args[1:]),
-                 B, T, W or 0, *(int(c) for c in costs), dirs.data_ptr())
+    ptrs = (args[0].data_ptr(), LQ, *(a.data_ptr() for a in args[1:]), B,
+            T, W or 0, *(int(c) for c in costs), dirs.data_ptr())
+    if first_version:
+        K.PROFILE_DP_FIRST(*ptrs)
+    else:
+        K.PROFILE_DP(*ptrs)
     return dirs
 
 
