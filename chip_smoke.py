@@ -15,6 +15,11 @@ Phases, each printing its result on its own line:
      behind a device sleep); wf_ext also at each lanes-a-thread choice;
      profile_dp off the warp kernel's rungs (full width, the 4096 bucket)
      also against its first version, equal and timed in the same run;
+     myers_hw (the adapter search) against hw_batch_plain at the adapter
+     path's shapes (4096 searches of the 84 and 25 bp adapters in ~1.1 kb
+     doubled consensus) and the single-copy path's (2048 searches of 32,
+     64, 65 and 128 bp queries in ~5 kb reads), its bound counting
+     ceil(qlen / 64) words a search;
   3. the wavefront dtype probe: wf_dtype_probe against probe_plain, exact,
      in all four variants at (T=512, BT=128) and (T=200, BT=7), then the
      probe's own timing table at its defaults;
@@ -34,7 +39,19 @@ Phases, each printing its result on its own line:
      timed run's records of the first 8 reads of each population
      byte-identical with tidehunter_core (run over a pool of host
      processes); the timed run once more under torch.profiler;
-  6. the full-width rung: regions that skip or escalate past the band
+  6. options: 1024 R2C2 reads with adapters (each unit the 84 bp 5'
+     adapter, a 450 bp insert and the reverse complement of the 25 bp 3'
+     adapter; 9 copies at 10% error, a quarter of the reads a single
+     copy) through the port's CLI with -5/-3 -f 2, -5/-3 -F and
+     -5/-3 -s -F, then the slice's reads with --polish 1 and --msa graph:
+     each run's reads/s and stage timers (--metrics), its launches and
+     hws_host, the problems of each myers_hw launch, and the records of
+     its first 8 reads byte-identical with tidehunter_core (over a pool
+     of host processes); the --msa graph run writes a --profile trace,
+     which must parse and hold the card's kernels; then myers_hw against
+     hw_batch_plain on the inputs of the -5/-3 -f 2 run's largest launch
+     (its main path: the numbers the summary line keeps);
+  7. the full-width rung: regions that skip or escalate past the band
      window must equal the host mirror banded_profile_consensus.
 The line before the last is a JSON object with every kernel's launches,
 error, times and bound (the larger of its integer ops over the card's int32
@@ -104,12 +121,14 @@ MSA_CASES = [(640, 128, 512, 450), (640, 128, 8, 450), (640, 128, 1, 450),
 WARP_RUNGS = (128, 256, 512)    # profile_dp_warp's rungs below T=4096
 # the check whose numbers stand for each kernel in the summary line: the
 # largest launch shape of the slice (for wf_ext the route of its launches
-# of more than one problem an SM, which hold most of its slice time)
+# of more than one problem an SM, which hold most of its slice time; for
+# myers_hw the largest launch of its main path, phase 6's first run)
 MAIN_SHAPES = {"wf_global": "iden_only (512,512) B=4096",
                "wf_ext": "ext (512,640) B=1024",
                "profile_dp": "T=640 W=128 B=512",
                "profile_dp_full": "T=128 W=full B=704",
-               "profile_bt": "T=640 W=128 B=512"}
+               "profile_bt": "T=640 W=128 B=512",
+               "myers_hw": "largest launch of -5 -3 -f 2"}
 # wf_ext's lanes a thread timed at the slice's extension shapes, beside
 # the choice of ops/wavefront.ext_lanes
 EXT_LANES_SWEEP = ((512, 640), (512, 256))
@@ -128,6 +147,14 @@ TRACE_NAMES = {"wf_global_kernel": "wf_global", "wf_ext_kernel": "wf_ext",
 PERIOD_POPULATIONS = (("short", 512, 60, 60), ("amplicon", 256, 1500, 6),
                       ("cdna", 128, 3000, 4))
 PERIOD_ORACLE_READS = 8      # reads of each population held to the oracle
+# the reference's shipped adapters: the 84 bp 5' adapter (sense strand)
+# and the 25 bp 3' adapter (anti-sense strand)
+FIVE = ("AATGATACGGCGACCACCGAGATCTACACTCGACTAGTCGTCGGCAGCGTCAGATGTGTATAA"
+        "GAGACAGTGAATTCTGGTGGG")
+THREE = "AAGCAGTGGTATCAACGCAGAGTAC"
+ADAPTER_READS = 1024         # phase 6's adapter population
+SC_QLENS = (32, 64, 65, 128)  # single-copy search shapes of phase 2
+OPTION_ORACLE_READS = 8      # reads of each option run held to the oracle
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
 # int32 results per clock per SM: 64 on the INT pipe (CUDA C++ Programming
@@ -141,6 +168,11 @@ INT32_PER_CLK_PER_SM = 128
 OPS_PER_CELL = {"wf_global iden_only": 51, "wf_global tleft": 70,
                 "wf_ext": 49, "profile_dp banded": 88,
                 "profile_dp full": 76, "profile_bt": 73}
+# myers_hw: int32 operations a target column and 64-bit query word (a
+# 64-bit operation counts two), and a column, counted in
+# csrc/myers_hw.cu's myers_step and its loop; both passes
+MYERS_OPS_PER_COL_WORD = 55
+MYERS_OPS_PER_COL = 20
 
 
 def nvidia_smi(query: str) -> str:
@@ -399,6 +431,74 @@ def phase_kernels(checks, dev, lanes=True):
                    lambda: MD.profile_bt_plain(dirs, qlen, st.ncol, T, W),
                    lambda: (OPS_PER_CELL["profile_bt"] * steps,
                             steps + _nbytes(qlen, st.ncol, *bt)))
+    if checks.wants("myers_hw"):
+        check_myers(checks, dev, rng)
+
+
+def revcomp(s: str) -> str:
+    return s[::-1].translate(str.maketrans("ACGT", "TGCA"))
+
+
+def myers_cases(rng):
+    """(label, [(query, target, k)]): the adapter path's searches (the
+    four adapter orientations in 1024 doubled consensus of an 84 + 450 +
+    25 bp unit, k = 20% of the adapter) and the single-copy path's (4
+    queries of SC_QLENS bp in 512 reads of ~5 kb, each holding a noisy
+    copy of every query)."""
+    from tidehunter_tpu_torch.io.codec import decode
+    from tidehunter_tpu_torch.ops.myers_device import encode5
+
+    adapters = [FIVE, revcomp(THREE), revcomp(FIVE), THREE]
+    codes = [encode5(a) for a in adapters]
+    cons = []
+    for _ in range(1024):
+        unit = np.concatenate([codes[0], rng.integers(0, 4, 450).astype(
+            np.uint8), codes[1]])
+        unit = np.roll(_mutate(rng, unit, 0.02), int(rng.integers(0, 559)))
+        cons.append(decode(np.concatenate([unit, unit])))
+    main = [(a, t, int(len(a) * 0.2)) for t in cons for a in adapters]
+    queries = [rng.integers(0, 4, n).astype(np.uint8) for n in SC_QLENS]
+    reads = []
+    for _ in range(512):
+        read = [rng.integers(0, 4, 1000).astype(np.uint8)]
+        for q in queries:
+            read += [_mutate(rng, q, 0.1),
+                     rng.integers(0, 4, 1000).astype(np.uint8)]
+        reads.append(decode(np.concatenate(read)))
+    sc = [(decode(q), t, int(len(q) * 0.2)) for t in reads for q in queries]
+    return [("adapters in doubled consensus B=4096", main),
+            (f"single-copy qlen {'/'.join(map(str, SC_QLENS))} in ~5 kb "
+             f"reads B=2048", sc)]
+
+
+def check_myers(checks, dev, rng):
+    """myers_hw at phase 2's shapes, packed as hw_batch packs them."""
+    from tidehunter_tpu_torch.ops.myers_device import pack
+
+    for label, trips in myers_cases(rng):
+        seq, meta, rows = pack(*zip(*trips))
+        assert len(rows) == len(trips)
+        myers_check(checks, label, torch.as_tensor(seq, device=dev),
+                    torch.as_tensor(meta, device=dev), int(meta[1].max()))
+
+
+def myers_check(checks, label, seq, meta, qmax):
+    """myers_hw against hw_batch_plain on the card, exact.  The bound
+    counts the work this run's data needs: for each search, ceil(qlen /
+    64) words over every target column (HW pass) and end + 1 columns
+    (SHW pass) when it is within k."""
+    from tidehunter_tpu_torch.ops import myers_device as MY
+
+    def work():
+        ed, _, end = MY.myers_hw(seq, meta, qmax).double()
+        words = torch.ceil(meta[1].double() / 64)
+        cols = meta[3].double() + torch.where(ed >= 0, end + 1, 0)
+        ops = float((cols * (MYERS_OPS_PER_COL_WORD * words
+                             + MYERS_OPS_PER_COL)).sum())
+        return ops, _nbytes(seq, meta) + 3 * 4 * meta.shape[1]
+
+    checks.run("myers_hw", label, lambda: (MY.myers_hw(seq, meta, qmax),),
+               lambda: (MY.hw_batch_plain(seq, meta),), work, reps=20)
 
 
 def phase_probe(checks, dev) -> int:
@@ -472,32 +572,47 @@ def serialize(reads, results, mtp):
     return buf.getvalue()
 
 
-def _oracle_one(rec, mtp) -> str:
+def _oracle_one(task) -> str:
+    """(read, params, graph MSA) -> the read's records by tidehunter_core,
+    serialized; graph sets the host oracle's graph-POA switch (TH_MSA), as
+    the CLI's --msa graph does for its run."""
     from tidehunter_tpu_torch.pipeline.core import tidehunter_core
 
+    rec, mtp, graph = task
+    if graph:
+        os.environ["TH_MSA"] = "graph"
+    else:
+        os.environ.pop("TH_MSA", None)
     return serialize([rec], [tidehunter_core(rec.seq, mtp)], mtp)
 
 
-def oracle_records(reads, mtp):
-    """Each read's records by the host oracle (tidehunter_core), serialized,
-    computed over a pool of host processes (one core left to this one);
-    the pool is shut down before returning."""
+def oracle_records(tasks):
+    """The records of each (read, params, graph MSA) task by the host
+    oracle, computed over a pool of host processes (one core left to this
+    one); the pool is shut down before returning."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
-    n = max(1, min(len(reads), (os.cpu_count() or 2) - 1))
+    n = max(1, min(len(tasks), (os.cpu_count() or 2) - 1))
     with ProcessPoolExecutor(n, mp_context=multiprocessing.get_context(
             "spawn")) as pool:
-        return list(pool.map(_oracle_one, reads, [mtp] * len(reads)))
+        return list(pool.map(_oracle_one, tasks))
 
 
-def records_by_read(text: str) -> dict:
-    """FASTA records (the default output format) grouped by read name."""
+def records_by_read(text: str, fmt: int = 1) -> dict:
+    """Records grouped by read name: FASTA (fmt 1, the default), FASTQ (3)
+    or one tabular line each (2, 4)."""
     out = {}
     lines = text.splitlines(keepends=True)
-    for head, seq in zip(lines[::2], lines[1::2]):
-        name = head[1:].split("_rep", 1)[0]
-        out[name] = out.get(name, "") + head + seq
+    if fmt in (2, 4):
+        for line in lines:
+            name = line.split("\t", 1)[0]
+            out[name] = out.get(name, "") + line
+        return out
+    step = 4 if fmt == 3 else 2
+    for i in range(0, len(lines), step):
+        name = lines[i][1:].split("_rep", 1)[0]
+        out[name] = out.get(name, "") + "".join(lines[i:i + step])
     return out
 
 
@@ -737,7 +852,7 @@ def phase_periods(tmp, dev):
     got = records_by_read(sink.getvalue())
     check = [r for pop in pops for r in pop[:PERIOD_ORACLE_READS]]
     t0 = time.perf_counter()
-    want = oracle_records(check, mtp)
+    want = oracle_records([(r, mtp, False) for r in check])
     oracle_s = time.perf_counter() - t0
     bad = [r.name for r, w in zip(check, want) if got.get(r.name, "") != w]
     if bad:
@@ -752,6 +867,179 @@ def phase_periods(tmp, dev):
     print(f"periods oracle: {len(check)} reads in {oracle_s:.1f} s over a "
           f"pool of host processes", flush=True)
     return {**launches, "profile_dp_full": full}
+
+
+# phase 6: (label, population, CLI arguments) of each option run
+OPTION_RUNS = (("-5 -3 -f 2", "adapters", ["-f", "2"]),
+               ("-5 -3 -F", "adapters", ["-F"]),
+               ("-5 -3 -s -F", "adapters", ["-s", "-F"]),
+               ("--polish 1", "slice", ["--polish", "1"]),
+               ("--msa graph", "slice", ["--msa", "graph"]))
+
+
+def adapter_reads(rng, n):
+    """R2C2 reads with adapters: each unit the 5' adapter, a 450 bp insert
+    and the reverse complement of the 3' adapter, 9 copies at 10% error
+    (every fourth read a single copy) between random 150 bp flanks."""
+    from tidehunter_tpu_torch.io.codec import decode
+    from tidehunter_tpu_torch.io.fastx import FastxRecord
+    from tidehunter_tpu_torch.ops.myers_device import encode5
+
+    five, three_rc = encode5(FIVE), encode5(revcomp(THREE))
+    out = []
+    for i in range(n):
+        unit = np.concatenate([five, rng.integers(0, 4, 450).astype(
+            np.uint8), three_rc])
+        parts = [rng.integers(0, 4, 150).astype(np.uint8)]
+        parts += [_mutate(rng, unit, 0.1) for _ in range(1 if i % 4 == 3
+                                                          else 9)]
+        parts.append(rng.integers(0, 4, 150).astype(np.uint8))
+        out.append(FastxRecord(name=f"ada_{i}", comment="",
+                               seq=decode(np.concatenate(parts))))
+    return out
+
+
+class MyersLaunches:
+    """Records the problem count of every myers_hw launch of hw_batch
+    while active, and the inputs of the largest (the calls themselves are
+    unchanged)."""
+
+    def __init__(self):
+        from tidehunter_tpu_torch.ops import myers_device as MY
+
+        self.my, self.orig = MY, MY.myers_hw
+        self.sizes, self.largest = [], None
+
+    def __enter__(self):
+        def rec(seq, meta, qmax):
+            self.sizes.append(meta.shape[1])
+            if self.largest is None or \
+                    meta.shape[1] > self.largest[1].shape[1]:
+                self.largest = (seq, meta, qmax)
+            return self.orig(seq, meta, qmax)
+
+        self.my.myers_hw = rec
+        return self
+
+    def __exit__(self, *exc):
+        self.my.myers_hw = self.orig
+
+
+def check_trace(path, label):
+    """The --profile trace at path parses as a Chrome trace and holds the
+    card's kernels."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = {}
+    for ev in events:
+        if ev.get("cat") == "kernel":
+            key = next((v for k, v in TRACE_NAMES.items()
+                        if k in ev["name"]), "other")
+            kernels[key] = kernels.get(key, 0) + 1
+    print(f"options {label} --profile: {os.path.getsize(path)} bytes, "
+          f"{len(events)} events; kernel events {json.dumps(kernels)}",
+          flush=True)
+    if not kernels:
+        raise AssertionError(f"options {label}: the --profile trace holds "
+                             f"no kernel event")
+
+
+def phase_options(tmp, dev):
+    """Each OPTION_RUNS run through the port's CLI on the card: reads/s,
+    stage timers (--metrics), launches and hws_host; the adapter runs
+    must launch myers_hw, --polish 1 the profile kernels, --msa graph no
+    profile DP (its MSA is the host graph-POA), and its --profile trace
+    must hold the card's kernels; the records of the first
+    OPTION_ORACLE_READS reads of each run must equal tidehunter_core's.
+    Returns myers_hw's launches in the first run (its main path) and the
+    inputs of that run's largest launch."""
+    from tidehunter_tpu_torch import _kernels as K
+    from tidehunter_tpu_torch import cli
+    from tidehunter_tpu_torch.evals.synth import synth_read
+    from tidehunter_tpu_torch.io.fastx import FastxRecord
+    from tidehunter_tpu_torch.pipeline.runner import load_adapters
+
+    rng = np.random.default_rng(42)
+    pops = {"adapters": adapter_reads(np.random.default_rng(44),
+                                      ADAPTER_READS),
+            "slice": [FastxRecord(name=f"r2c2_{i}", comment="",
+                                  seq=synth_read(rng))
+                      for i in range(SLICE_READS)]}
+    files = {}
+    for key, reads in pops.items():
+        files[key] = os.path.join(tmp, f"options_{key}.fa")
+        with open(files[key], "w") as f:
+            f.writelines(f">{r.name}\n{r.seq}\n" for r in reads)
+    ada = []
+    for name, seq in (("5p", FIVE), ("3p", THREE)):
+        ada += ["-5" if name == "5p" else "-3", os.path.join(tmp, name)]
+        with open(ada[-1], "w") as f:
+            f.write(f">{name}\n{seq}\n")
+    out, met = os.path.join(tmp, "options.out"), os.path.join(tmp,
+                                                              "options.json")
+    trace = os.path.join(tmp, "options_trace.json")
+    tasks, got, main = [], [], None
+    for label, key, args in OPTION_RUNS:
+        argv = (ada if key == "adapters" else []) + args
+        prof = ["--profile", trace] if "--msa" in args else []
+        K.reset_launches()
+        with MyersLaunches() as rec:
+            rc = cli.main([*argv, *prof, "--device", dev.type, "-o", out,
+                           "--metrics", met, files[key]])
+            sync(dev)
+        launches = {k: v for k, v in K.launches().items() if v}
+        if rc != 0:
+            raise AssertionError(f"options {label}: exit {rc}")
+        with open(met) as f:
+            snap = json.load(f)
+        print(f"options {label}: {snap['reads']} reads ({key}) in "
+              f"{snap['wall_s']} s = {snap['reads_per_s']} reads/s; "
+              f"consensus records {snap['cons_records']}; launches "
+              f"{json.dumps(launches)}; hws_host "
+              f"{int(snap.get('hws_host', 0))}"
+              f"{' (under --profile)' if prof else ''}", flush=True)
+        print(f"options {label} stages: " + " ".join(
+            f"{k}={v}" for k, v in sorted(snap.items())), flush=True)
+        if prof:
+            check_trace(trace, label)
+        if key == "adapters":
+            print(f"options {label} myers_hw problems a launch: "
+                  f"{rec.sizes}", flush=True)
+            if main is None:
+                main = (launches.get("myers_hw", 0), rec.largest)
+            need = ["myers_hw"]
+        else:
+            need = ["wf_global", "wf_ext"]
+        if "--polish" in args:
+            need += ["profile_dp", "profile_bt"]
+        idle = [k for k in need if not launches.get(k)]
+        if idle:
+            raise AssertionError(f"options {label}: not launched: {idle}")
+        if "--msa" in args and launches.get("profile_dp"):
+            raise AssertionError("options --msa graph ran the profile DP")
+        if snap["reads"] != len(pops[key]) or snap["cons_records"] <= 0:
+            raise AssertionError(f"options {label}: {snap['cons_records']} "
+                                 f"records for {snap['reads']} reads")
+        mtp = cli.parse_args([*argv, files[key]])[0]
+        load_adapters(mtp)
+        with open(out) as f:
+            recs = records_by_read(f.read(), mtp.out_fmt)
+        for r in pops[key][:OPTION_ORACLE_READS]:
+            tasks.append((r, mtp, "--msa" in args))
+            got.append((label, r.name, recs.get(r.name, "")))
+    t0 = time.perf_counter()
+    want = oracle_records(tasks)
+    bad = [f"{label}: {name}" for (label, name, g), w in zip(got, want)
+           if g != w]
+    if bad:
+        raise AssertionError(f"options records differ from the oracle: "
+                             f"{bad}")
+    print(f"options oracle: the first {OPTION_ORACLE_READS} reads of each "
+          f"run ({sum(w.count(chr(10)) for w in want)} lines) "
+          f"byte-identical with tidehunter_core ("
+          f"{time.perf_counter() - t0:.1f} s over a pool of host "
+          f"processes)", flush=True)
+    return main
 
 
 def phase_full_width(dev):
@@ -805,6 +1093,9 @@ KERNEL_META = {
                    "tidehunter_tpu/ops/msa_device.py:479"),
     "wf_dtype_probe": ("tidehunter_tpu_torch/csrc/wf_dtype_probe.cu",
                        "evals/wf_dtype_probe.py:111"),
+    # a lax.scan, not a Pallas kernel: the hand kernel of the adapter path
+    "myers_hw": ("tidehunter_tpu_torch/csrc/myers_hw.cu",
+                 "tidehunter_tpu/ops/myers_jax.py:51"),
 }
 
 
@@ -870,6 +1161,13 @@ def main(argv=None) -> int:
         launches["profile_dp_full"] = phase_periods(tmp, dev)[
             "profile_dp_full"]
         print(f"periods phase: {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        launches["myers_hw"], largest = phase_options(tmp, dev)
+        print(f"options phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    seq, meta, qmax = largest
+    print(f"myers_hw main-path launch: B={meta.shape[1]}, longest query "
+          f"{qmax} bp", flush=True)
+    myers_check(checks, MAIN_SHAPES["myers_hw"], seq, meta, qmax)
     phase_full_width(dev)
 
     rows = []
@@ -882,7 +1180,8 @@ def main(argv=None) -> int:
                      "bound_ms": row["bound_ms"],
                      "bound_by": row["bound_by"],
                      # no single PyTorch call computes an affine-gap DP
-                     # wavefront, a profile-POA DP or its backtrack
+                     # wavefront, a profile-POA DP, its backtrack or a
+                     # bit-parallel edit-distance search
                      "library_ms": None})
         for extra in ("variants_ms", "first_version_ms"):
             if extra in row:

@@ -2,8 +2,8 @@
 
 csrc/wavefront.cu (``wf_global``, ``wf_ext``), csrc/profile_dp.cu
 (``profile_dp``: its warp kernel and its strips, one CTA or a cluster a
-region; ``profile_dp_first``, the first version) and csrc/profile_bt.cu
-(``profile_bt``) are compiled with the host's C++ compiler over
+region; ``profile_dp_first``, the first version), csrc/profile_bt.cu
+(``profile_bt``) and csrc/myers_hw.cu (``myers_hw``) are compiled with the host's C++ compiler over
 tests/cuda_shim.h, which emulates the CUDA subset they use (threads, warp
 shuffles, barriers, shared memory, cp.async copies, thread-block clusters
 and their distributed shared memory, the DPX intrinsics), and called
@@ -23,15 +23,17 @@ from pathlib import Path
 import numpy as np
 import pytest
 import test_torch_kernel_order as KO
+import test_torch_myers as TM
 import torch
 
 from tidehunter_tpu_torch import _kernels as K
 from tidehunter_tpu_torch.ops import msa_device as TMD
+from tidehunter_tpu_torch.ops import myers_device as MY
 from tidehunter_tpu_torch.ops import wavefront as TW
 
 torch.set_num_threads(1)
 
-SOURCES = ("wavefront.cu", "profile_dp.cu", "profile_bt.cu")
+SOURCES = ("wavefront.cu", "profile_dp.cu", "profile_bt.cu", "myers_hw.cu")
 
 
 def _translate(src: str) -> str:
@@ -64,7 +66,7 @@ def lib(tmp_path_factory):
     dll = ctypes.CDLL(str(so))
     fns = {}
     for k in (K.WF_GLOBAL, K.WF_EXT, K.PROFILE_DP, K.PROFILE_DP_FIRST,
-              K.PROFILE_BT):
+              K.PROFILE_BT, K.MYERS_HW):
         fn = getattr(dll, k.name)
         fn.argtypes = [*k.argtypes, ctypes.c_void_p]
         fn.restype = ctypes.c_int
@@ -315,3 +317,51 @@ def test_profile_bt_source_refuses_unaligned(lib, T, W, dNL, mis_dirs,
                            _p(ops), _p(nst), _p(tch), None)
     assert rc == 1                            # cudaErrorInvalidValue
     assert (ops == 0x55).all() and (nst == -7).all() and (tch == -7).all()
+
+
+def _myers_run(lib, seq, meta, W):
+    B = meta.shape[1]
+    out = np.zeros((3, B), np.int32)
+    rc = lib["myers_hw"](_p(seq), _p(meta), B, W, _p(out), None)
+    assert rc == 0
+    return out
+
+
+@pytest.mark.parametrize("case", list(TM.CASES))
+def test_myers_hw_source_matches_plain(lib, case):
+    """Every case of test_torch_myers (queries of 5-128 bp across the
+    word boundaries, k caps, ties, the reference's adapters) at the
+    launcher's W and, for queries of at most 64 bp, also at W = 2 (a
+    launch whose longest query needs two words)."""
+    seq, meta = TM._tensors(*TM.CASES[case]())
+    want = MY.hw_batch_plain(seq, meta).numpy()
+    seq_np, meta_np = seq.numpy(), meta.numpy()
+    W = 1 if meta_np[1].max() <= 64 else 2
+    for w in sorted({W, 2}):
+        np.testing.assert_array_equal(_myers_run(lib, seq_np, meta_np, w),
+                                      want)
+
+
+def test_myers_hw_source_shared_targets_and_blocks(lib):
+    """Problems that share one target and query in the byte buffer
+    (packed by hw_batch's pack), over three blocks of threads."""
+    rng = np.random.default_rng(5)
+    qs = [TM.FIVE, TM.THREE, TM._rand_seq(rng, 33), TM._rand_seq(rng, 64)]
+    targets = [TM._rand_seq(rng, int(rng.integers(100, 600)))
+               for _ in range(80)]
+    targets = [t[:50] + TM._mutseq(rng, qs[i % 4], 0.1) + t[50:]
+               for i, t in enumerate(targets)]
+    trips = [(qs[(i + j) % 4], t, [-1, 20, 3][j])
+             for i, t in enumerate(targets) for j in range(3)]
+    seq, meta, rows = MY.pack(*zip(*trips))
+    assert len(rows) == len(trips)
+    want = MY.hw_batch_plain(torch.from_numpy(seq), torch.from_numpy(meta))
+    np.testing.assert_array_equal(_myers_run(lib, seq, meta, 2),
+                                  want.numpy())
+
+
+def test_myers_hw_source_refuses_bad_words(lib):
+    seq, meta = TM._tensors(["ACGT"], ["AACGTT"], [-1])
+    out = np.zeros((3, 1), np.int32)
+    assert lib["myers_hw"](_p(seq.numpy()), _p(meta.numpy()), 1, 3,
+                           _p(out), None) != 0

@@ -1,7 +1,7 @@
 """PyTorch port end to end on the CPU (tidehunter_tpu_torch engine, CLI
 and API): records byte-identical with the JAX package's engine on the CPU
 and with the sequential host oracle; a CUDA request without a card fails
-loudly.  (The run with JAX blocked from import is in test_torch_host.py.)
+loudly, and so does --dist, the one option the port does not run.  (The run with JAX blocked from import is in test_torch_host.py.)
 
 The reads are in-repo tandem reads (evals/synth.synth_read) whose units
 land in MSA buckets T=128 (full width) and T=256 (band W=128).
@@ -126,23 +126,15 @@ def test_cuda_without_card_fails(fasta, tmp_path):
         Engine(Params(), device="cuda")
 
 
-@pytest.mark.parametrize("change", ["polish", "graph", "adapters"])
+@pytest.mark.parametrize("change", ["dist"])
 def test_unported_options_are_refused(change, fasta, tmp_path):
-    mtp = Params()
-    kwargs = {}
-    argv = ["--device", "cpu", "-o", str(tmp_path / "x.fa")]
-    if change == "polish":
-        mtp.polish = 1
-        argv += ["--polish", "1"]
-    elif change == "graph":
-        kwargs["msa_mode"] = "graph"
-        argv += ["--msa", "graph"]
-    else:
-        mtp.five_fn = mtp.three_fn = fasta
-        argv += ["-5", fasta, "-3", fasta]
-    with pytest.raises(NotImplementedError):
-        Engine(mtp, device="cpu", **kwargs)
+    """--dist is the one option of the JAX CLI the port does not run: an
+    error, and no output file."""
+    out = tmp_path / "x.fa"
+    argv = ["--device", "cpu", "-o", str(out), "--dist",
+            "localhost:1234/2/0"]
     assert tcli.main(argv + [fasta]) != 0
+    assert not out.exists()
 
 
 def test_detector_cpu_matches_oracle(runs, reads):

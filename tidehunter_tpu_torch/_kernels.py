@@ -158,9 +158,11 @@ PROFILE_DP_FIRST = Kernel("profile_dp_first", PROFILE_DP.argtypes)
 PROFILE_BT = Kernel("profile_bt", [P, I, I, I, P, P, I, P, P, P])
 # csrc/wf_dtype_probe.cu
 WF_DTYPE_PROBE = Kernel("wf_dtype_probe", [P, P, I, I, I, I])
+# csrc/myers_hw.cu
+MYERS_HW = Kernel("myers_hw", [P, P, I, I, P])
 
 KERNELS = (WF_GLOBAL, WF_EXT, PROFILE_DP, PROFILE_DP_FIRST, PROFILE_BT,
-           WF_DTYPE_PROBE)
+           WF_DTYPE_PROBE, MYERS_HW)
 
 
 def reset_launches() -> None:

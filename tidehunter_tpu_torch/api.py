@@ -10,7 +10,9 @@ behind it).
 
 ``device``: "cuda" (hand-written kernels on the card), "cpu" (their plain
 PyTorch versions) or "off" (the sequential host oracle).  The engine is
-built on first use.
+built on first use.  Every option of ``Params`` runs through it, the
+adapters (``five_fn``/``three_fn`` with ``only_full_length`` and
+``single_copy``) and ``polish`` included.
 
 Results are ``TandemResult`` objects (one per input read, input order),
 each holding ``.records`` — a list of ``ConsRecord`` with the same fields

@@ -5,13 +5,20 @@
 Takes the reference flags (the JAX package's parser, copied) plus
 ``--device cuda|cpu|off`` (default cuda): ``cuda`` runs the hand-written
 kernels, ``cpu`` their plain PyTorch versions, ``off`` the sequential host
-oracle.  A device that cannot be used, and options this port does not
-support yet (adapters, --polish, --msa graph, --dist, --profile,
---metrics), end the run with an error; nothing falls back to the host.
+oracle.  The JAX CLI's own options run as there: ``--polish``, ``--msa
+graph`` (the host graph-POA for the consensus MSA, every other stage on
+the device), ``--metrics FILE`` (or ``TH_METRICS``), ``--profile PATH`` (a
+torch.profiler Chrome/Perfetto trace of the run), ``--shard`` and
+``--resume``.  ``--dist`` is not supported by the port and, like a device
+that cannot be used, ends the run with an error; nothing falls back to the
+host.
 """
 
 from __future__ import annotations
 
+import contextlib
+import json
+import os
 import sys
 from typing import List, Optional
 
@@ -90,10 +97,15 @@ def usage() -> int:
     e("    --device STR            kernel dispatch: cuda | cpu | off [cuda]\n")
     e("    --resume STR            progress-cursor file for checkpoint/restart [off]\n")
     e("    --shard I/N             process reads I, I+N, I+2N, ... [0/1]\n")
+    e("    --metrics STR           write structured run metrics JSON to file [off]\n")
+    e("    --profile STR           write a torch.profiler trace (Chrome/Perfetto\n")
+    e("                            JSON) of the run to this file [off]\n")
+    e("    --polish INT            consensus refinement rounds (realign units to the\n")
+    e("                            final profile; improves low-coverage accuracy) [0]\n")
     e("    --msa STR               consensus model: profile (batched device\n")
-    e("                            profile-POA) [profile]\n")
-    e("    not supported by the port yet: --polish, --msa graph, --dist,\n")
-    e("    --profile, --metrics\n")
+    e("                            profile-POA) | graph (host graph-POA, the\n")
+    e("                            abPOA-faithful model, native C) [profile]\n")
+    e("    not supported by the port: --dist\n")
     e("  General options:\n")
     e("    -h --help               print this help usage information\n")
     e("    -v --version            show version number\n")
@@ -368,6 +380,14 @@ def _apply_opt(mtp: Params, extra: dict, c: str, val: str) -> Optional[int]:
     return None
 
 
+def _set_env(name: str, value: Optional[str]) -> None:
+    """os.environ[name] = value; None unsets it."""
+    if value is None:
+        os.environ.pop(name, None)
+    else:
+        os.environ[name] = value
+
+
 def _error(msg: str) -> int:
     sys.stderr.write(f"\n[main] Error: {msg}\n")
     return 1
@@ -383,21 +403,21 @@ def main(argv: Optional[List[str]] = None) -> int:
     if device not in DEVICES:
         return _error(f"--device needs one of {'|'.join(DEVICES)}, "
                       f"got '{device}'.")
-    unsupported = [f"--{k}" for k in ("dist", "profile", "metrics")
-                   if extra[k]]
-    if extra["msa"] != "profile":
-        unsupported.append(f"--msa {extra['msa']}")
-    if unsupported:
-        return _error("not supported by the PyTorch port yet: "
-                      + ", ".join(unsupported))
+    if extra["dist"]:
+        return _error("not supported by the PyTorch port: --dist")
+    metrics_fn = extra["metrics"] or os.environ.get("TH_METRICS")
+    if metrics_fn:
+        METRICS.reset()      # the file holds this run's counters only
 
     engine = None
     if device != "off":
         from .engine import Engine
 
         try:
-            engine = Engine(mtp, device=device)
-        except (NotImplementedError, RuntimeError) as exc:
+            engine = Engine(mtp, device=device,
+                            msa_mode="poa" if extra["msa"] == "graph"
+                            else "profile")
+        except RuntimeError as exc:
             return _error(str(exc))
         log(f"engine ready (device={device})")
 
@@ -406,20 +426,44 @@ def main(argv: Optional[List[str]] = None) -> int:
     sys.setswitchinterval(0.001)
     out = open(extra["output"], "w") if extra["output"] else None
     mtp.cons_out = out
+    prof = None
     try:
-        metrics = runner.run(read_fn, mtp, out=out,
-                             resume_cursor=extra["resume"],
-                             process_chunk=engine, shard=extra["shard"])
+        with contextlib.ExitStack() as stack:
+            if extra["msa"] == "graph":
+                # the host oracle's graph-POA switch (pipeline/consensus.py
+                # _msa_oracle), set for this run only
+                stack.callback(_set_env, "TH_MSA", os.environ.get("TH_MSA"))
+                os.environ["TH_MSA"] = "graph"
+            if extra["profile"]:
+                from torch.profiler import ProfilerActivity, profile
+
+                acts = [ProfilerActivity.CPU] + (
+                    [ProfilerActivity.CUDA] if device == "cuda" else [])
+                prof = stack.enter_context(profile(activities=acts))
+                log(f"profiler trace -> {extra['profile']}")
+            metrics = runner.run(read_fn, mtp, out=out,
+                                 resume_cursor=extra["resume"],
+                                 process_chunk=engine, shard=extra["shard"])
     except FileNotFoundError as exc:
         return _error(f"can not open file {exc.filename}")
     finally:
         if out is not None:
             out.close()
+    if prof is not None:
+        prof.export_chrome_trace(extra["profile"])
     log(resource_line(), func="main")
     log(f"reads: {metrics.reads}; consensus records: {metrics.cons_records}; "
         f"reads/s: {metrics.reads_per_s():.2f}", func="main")
-    if METRICS.snapshot():
+    snap = METRICS.snapshot()
+    if snap:
         log(METRICS.summary_line(), func="metrics")
+    if metrics_fn:
+        snap.update(reads=metrics.reads, chunks=metrics.chunks,
+                    cons_records=metrics.cons_records,
+                    wall_s=round(metrics.wall_s, 3),
+                    reads_per_s=round(metrics.reads_per_s(), 3))
+        with open(metrics_fn, "w") as f:
+            json.dump(snap, f, indent=1)
     return 0
 
 

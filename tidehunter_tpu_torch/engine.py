@@ -10,12 +10,16 @@ The per-read stages are the port's copies of the JAX package's generators
 (``pipeline/consensus.seqs_msa_gen``, ``ops/partition``), driven
 breadth-first by the ``_drive`` helpers below; each drive round is resolved
 here with one batched call per request kind, serially.  Request kinds:
-``global``, ``giden``, ``gidens``, ``ext``, ``exts``, ``gx`` and ``msa``.
+``global``, ``giden``, ``gidens``, ``ext``, ``exts``, ``gx``, ``hws``
+(Myers adapter searches, ``ops/myers_device``) and ``msa``.
 
 On ``cuda`` every device call launches the hand-written kernels; on
-``cpu`` the same calls run their plain PyTorch versions.  Adapters
-(``hws``), ``--polish`` and ``--msa graph`` are not part of this port yet:
-the engine refuses them at construction.
+``cpu`` the same calls run their plain PyTorch versions.  Adapters run
+their searches as ``hws`` rounds, and with ``-s -F`` a fourth stage drives
+the single-copy reads; ``polish`` adds the device MSA's frozen-layout
+rounds; ``msa_mode="poa"`` (the CLI's ``--msa graph``) resolves every
+``msa`` request with the host oracle ``resolve_oracle``, as the JAX
+engine does, and keeps every other kind on the device.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ from .io.output import TandemResult
 from .ops import ksw2, ksw2_native, wavefront
 from .ops.chaining_native import tandem_chain_native
 from .ops.msa_device import DeviceMSA
+from .ops.myers_device import hw_batch
 from .ops.partition import (
     combine_walks,
     partition_walk_left,
@@ -40,10 +45,15 @@ from .ops.partition import (
 from .ops.poa_profile import profile_consensus
 from .ops.seeding_native import collect_tandem_repeat_hits
 from .params import Params
-from .pipeline.consensus import seqs_msa_gen
+from .pipeline.consensus import (
+    resolve_oracle,
+    seqs_msa_gen,
+    single_copy_full_len_gen,
+)
 from .utils.metrics import METRICS
 
 KSW2_SCORES = (ksw2.MATCH_SC, ksw2.MIS_SC, ksw2.GAP_OPEN, ksw2.GAP_EXT)
+MSA_MODES = ("profile", "poa")
 
 
 # --- breadth-first generator driving (tidehunter_tpu/engine.py) ---
@@ -242,17 +252,11 @@ class Engine:
 
     def __init__(self, mtp: Params, device: str = "cuda",
                  msa_mode: str = "profile"):
-        missing = []
-        if msa_mode != "profile":
-            missing.append(f"--msa {msa_mode}")
-        if getattr(mtp, "polish", 0):
-            missing.append("--polish")
-        if any(getattr(mtp, f) is not None for f in
-               ("five_fn", "three_fn", "five_seq", "three_seq")):
-            missing.append("adapters (-5/-3, -F, -s)")
-        if missing:
-            raise NotImplementedError(
-                "not supported by the PyTorch port yet: " + ", ".join(missing))
+        """msa_mode: "profile" (the device profile-POA) or "poa" (every
+        msa request to the host oracle, the JAX engine's mode names)."""
+        if msa_mode not in MSA_MODES:
+            raise ValueError(f"msa_mode must be one of {MSA_MODES}, got "
+                             f"{msa_mode!r}")
         if device == "cuda":
             require_cuda()
         elif device != "cpu":
@@ -261,12 +265,13 @@ class Engine:
             raise RuntimeError(
                 "the native host library (tidehunter_tpu_torch/native) did not load")
         self.mtp = mtp
+        self.msa_mode = msa_mode
         self.device = torch.device(device)
         self.aligner = BatchAligner(mtp.aln_bucket_sizes, self.device)
         self.msa = DeviceMSA(
             mtp.match, mtp.mismatch, mtp.gap_open1, mtp.gap_ext1,
-            gap_open2=mtp.gap_open2, gap_ext2=mtp.gap_ext2,
-            device=self.device)
+            polish=mtp.polish, gap_open2=mtp.gap_open2,
+            gap_ext2=mtp.gap_ext2, device=self.device)
 
     # --- request resolution ---
 
@@ -275,7 +280,7 @@ class Engine:
         for i, req in enumerate(reqs):
             by_kind.setdefault(req[0], []).append(i)
         unknown = set(by_kind) - {"global", "giden", "gidens", "ext", "exts",
-                                  "gx", "msa"}
+                                  "gx", "hws", "msa"}
         if unknown:
             raise NotImplementedError(f"request kinds {sorted(unknown)}")
         METRICS.add("rounds")
@@ -324,10 +329,25 @@ class Engine:
             eres = al.run_ext(epairs)
             for i, (glo, gn), (elo, en) in zip(idxs, gspans, espans):
                 out[i] = (gres[glo:glo + gn], eres[elo:elo + en])
+        if "hws" in by_kind:
+            # every request's adapter searches in one hw_batch call
+            idxs = by_kind["hws"]
+            trips, spans = flat(idxs, 1)
+            with METRICS.timed("dev_hws"):
+                res = hw_batch([q for q, _, _ in trips],
+                               [t for _, t, _ in trips],
+                               [k for _, _, k in trips], self.device)
+            for i, (lo, n) in zip(idxs, spans):
+                out[i] = res[lo:lo + n]
         if "msa" in by_kind:
             idxs = by_kind["msa"]
-            for i, r in zip(idxs, self._resolve_msa_device(
-                    [reqs[i][1] for i in idxs])):
+            regions = [reqs[i][1] for i in idxs]
+            if self.msa_mode == "poa":
+                res = [resolve_oracle(("msa", units), self.mtp)
+                       for units in regions]
+            else:
+                res = self._resolve_msa_device(regions)
+            for i, r in zip(idxs, res):
                 out[i] = r
         return out
 
@@ -343,7 +363,8 @@ class Engine:
                 METRICS.add("msa_host_oversize")
                 results[ri] = profile_consensus(
                     regions[ri], m.match, m.mismatch, m.gap_open1,
-                    m.gap_ext1, gap_open2=m.gap_open2, gap_ext2=m.gap_ext2)
+                    m.gap_ext1, polish=m.polish, gap_open2=m.gap_open2,
+                    gap_ext2=m.gap_ext2)
         return results
 
     # --- chunk processing ---
@@ -450,6 +471,14 @@ class Engine:
                         results[ri].add_cons(a, b)
                     else:
                         results[ri].add_unit(a)
+        # stage 4: single-copy full-length reads, their adapter searches
+        # in two hws rounds (tidehunter_tpu/engine.py:1066-1078)
+        if (mtp.single_copy and mtp.only_full_length
+                and mtp.five_seq is not None and mtp.three_seq is not None):
+            with METRICS.timed("single_copy"):
+                _drive([single_copy_full_len_gen(rec.seq, results[ri], mtp)
+                        for ri, rec in enumerate(chunk)],
+                       self._resolve_batch)
         return results
 
     def process_chunk(self, chunk, mtp: Params) -> List[TandemResult]:

@@ -17,6 +17,11 @@ and each unit round is
      (``csrc/profile_bt.cu``);
   4. ``update_step`` (torch ops): the profile update as gathers.
 
+With ``polish`` > 0, each polish pass realigns every unit (unit 0 too)
+against the frozen profile with the same three steps and counts its match
+votes with ``polish_update`` (torch ops, the JAX package's jnp code); the
+votes then become the counts.
+
 ``consensus_batch`` keeps the JAX package's retry walk exactly (1.2x column
 margin, bucket-up on overflow, next band rung on a band touch, units
 truncated to T, the ``ev`` first-event rule), so its output is
@@ -343,9 +348,13 @@ def profile_bt_plain(dirs, qlen, ncol, T, W):
 class DeviceMSA:
     """Batched profile-POA over bucketed (T, W) region batches."""
 
-    def __init__(self, match, mismatch, gap_open, gap_ext, gap_open2=None,
-                 gap_ext2=None, buckets=BUCKETS, device="cuda"):
+    def __init__(self, match, mismatch, gap_open, gap_ext, polish=0,
+                 gap_open2=None, gap_ext2=None, buckets=BUCKETS,
+                 device="cuda"):
+        """polish: frozen-layout refinement passes after the sequential
+        one (bit-exact with profile_consensus(..., polish=polish))."""
         self.buckets = tuple(sorted(buckets))
+        self.polish = polish
         self.device = torch.device(device)
         if gap_open2 is None:
             # single affine: track 2 strictly dominated within any bucket
@@ -433,16 +442,51 @@ class DeviceMSA:
         n_placed2 = state.n_placed + active.int()
         return counts2, n_placed2, ncol2, overflow2
 
-    def round(self, state: MSAState, unit, qlen, active, T: int,
-              W: Optional[int] = None) -> RoundOut:
-        """One unit round; W set runs the banded window and threads the
-        ev first-event state (touch before overflow within a round)."""
+    @staticmethod
+    def polish_update(votes, ncol, active, unit, ops, nst):
+        """votes [B, T, 5] int16 plus the match votes of one realigned
+        unit (msa_device.polish_update): only M steps into existing
+        columns count, the compacted ops realigned to forward order over
+        their full width (a step past T can still vote into a column
+        below T), the destination clamped to T (dropped).  ncol is unused,
+        as in the JAX function.  The scatter-add runs in int32 (int16 has
+        no scatter-add on every device) and casts back: a vote count never
+        exceeds the unit count."""
+        B, T, _ = votes.shape
+        NP = ops.shape[1]
+        pos = torch.arange(NP, device=votes.device)[None, :]
+        nst1 = nst.reshape(B, 1)
+        src = (pos + (NP - nst1)).clamp(0, NP - 1)
+        op = ops.gather(1, src.long()).int()
+        valid = (pos < nst1) & active[:, None]
+        consumes_c = valid & (op != OP_I)
+        consumes_q = valid & (op != OP_D)
+        col = torch.cumsum(consumes_c, dim=1, dtype=torch.int32) - 1
+        qp = torch.cumsum(consumes_q, dim=1, dtype=torch.int32) - 1
+        is_m = valid & (op == OP_M)
+        base = unit.gather(1, qp.clamp(0, unit.shape[1] - 1).long()).long()
+        onehot = F.one_hot(torch.where(is_m, base, 5), 6)[:, :, :5].int()
+        dest = torch.where(is_m & (col < T), col, T).long()
+        padded = torch.zeros((B, T + 1, 5), dtype=torch.int32,
+                             device=votes.device)
+        padded.scatter_add_(1, dest[:, :, None].expand(-1, -1, 5), onehot)
+        return (votes.int() + padded[:, :T]).to(torch.int16)
+
+    def _align(self, state: MSAState, unit, qlen, T: int,
+               W: Optional[int]):
+        """Scores, DP and backtrack of one unit against the profile."""
         sub, wdel, wl, wdel2, wl2 = self.scores_step(state)
         dirs = profile_dp(unit, qlen, state.ncol, sub, wl, wdel, wl2, wdel2,
                           self.costs, W)
         if W is None:
             METRICS.add("msa_full_rounds")
-        ops, nst, tch = profile_bt(dirs, qlen, state.ncol, T, W)
+        return (dirs, *profile_bt(dirs, qlen, state.ncol, T, W))
+
+    def round(self, state: MSAState, unit, qlen, active, T: int,
+              W: Optional[int] = None) -> RoundOut:
+        """One unit round; W set runs the banded window and threads the
+        ev first-event state (touch before overflow within a round)."""
+        dirs, ops, nst, tch = self._align(state, unit, qlen, T, W)
         counts, n_placed, ncol, overflow = self.update_step(
             state, unit, active, ops, nst)
         ev = state.ev
@@ -453,6 +497,18 @@ class DeviceMSA:
                 touched, 1, torch.where(ovf_new, 2, 0))).int()
         return RoundOut(MSAState(counts, n_placed, ncol, overflow, ev),
                         dirs, ops, nst, tch)
+
+    def polish_round(self, state: MSAState, votes, unit, qlen, active,
+                     T: int, W: Optional[int] = None):
+        """(votes, ev) after one unit of a polish pass: the unit aligned
+        against the frozen state, its match votes added; on a band rung
+        ev records a touch only (polish_round_fn)."""
+        _dirs, ops, nst, tch = self._align(state, unit, qlen, T, W)
+        votes = self.polish_update(votes, state.ncol, active, unit, ops, nst)
+        ev = state.ev
+        if W is not None:
+            ev = torch.where(ev != 0, ev, ((tch > 0) & active).int())
+        return votes, ev
 
     @staticmethod
     def consensus_step(state: MSAState):
@@ -524,13 +580,26 @@ class DeviceMSA:
         nunits_d = torch.as_tensor(nunits, device=dev)
         state = self.init_state(units_d, ulen_d)
         METRICS.add("msa_batches")
-        METRICS.add("msa_cells", float(B) * T * (W or T) * (U - 1))
+        METRICS.add("msa_cells",
+                    float(B) * T * (W or T) * (U - 1 + self.polish * U))
         one = torch.ones(B, dtype=torch.int32, device=dev)
-        for k in range(1, U):
+
+        def gather(k):
             active = k < nunits_d
-            qlen_k = torch.where(active, ulen_d[:, k], one)
-            state = self.round(state, units_d[:, k], qlen_k, active, T,
-                               W).state
+            return (units_d[:, k], torch.where(active, ulen_d[:, k], one),
+                    active)
+
+        for k in range(1, U):
+            state = self.round(state, *gather(k), T, W).state
+        for _ in range(self.polish):
+            # every unit, the first too, against the same frozen counts
+            votes = torch.zeros_like(state.counts)
+            ev = state.ev
+            for k in range(U):
+                votes, ev = self.polish_round(state._replace(ev=ev), votes,
+                                              *gather(k), T, W)
+            state = state._replace(counts=votes,
+                                   n_placed=nunits_d.int(), ev=ev)
         best, bc, keep = self.consensus_step(state)
         best, bc, keep, ovf, ev = (x.cpu().numpy() for x in (
             best, bc, keep, state.overflow, state.ev))
