@@ -3,6 +3,7 @@
     python3 chip_smoke.py
     # two commits' kernels on one card, in turns (A, B, B, A)
     python3 chip_smoke.py --kernels wf_ext,profile_bt --port OTHER_CHECKOUT
+    python3 chip_smoke.py --kernels seed_hits,chain_dp
 
 Phases, each printing its result on its own line:
   1. card and build: the card's name and power limit (nvidia-smi), the
@@ -52,12 +53,28 @@ Phases, each printing its result on its own line:
      hw_batch_plain on the inputs of the -5/-3 -f 2 run's largest launch
      (its main path: the numbers the summary line keeps);
   7. the full-width rung: regions that skip or escalate past the band
-     window must equal the host mirror banded_profile_consensus.
+     window must equal the host mirror banded_profile_consensus;
+  8. device seeding and chaining (TH_DEVICE_SEED, TH_DEVICE_CHAIN):
+     seed_hits against its plain version, exact, at the slice's launch (the
+     first 512-read chunk, k=8 w=1, packed hits), the periods path's 12.3
+     kb reads, -H, w=5, k=16 (64-bit seed words) and 40 kb reads (the
+     global-scratch route), timed beside torch.sort over the same seed
+     words; chain_dp against its plain version at the slice chunk's
+     launch (its packed hits decoded into [512, L] planes, window = L) and
+     at window 64; then the slice's 1024 reads through the runner with
+     TH_DEVICE_SEED=1, with TH_DEVICE_CHAIN=1 too, and with TH_OFFLOAD_V1=1
+     as well (the v1 route; a warm and a timed run each: reads/s,
+     device_seed, seed_chain, partition, the offload_*_fb reroutes and
+     both kernels' launches), every record byte-identical with phase 4's
+     timed run, and one run of the periods path with both switches
+     byte-identical with phase 5's.
 The line before the last is a JSON object with every kernel's launches,
 error, times and bound (the larger of its integer ops over the card's int32
 rate and its bytes over 3.35 TB/s; a profile DP's ops count the cells the
-data needs, its bytes every lane of the rows written); the last line is the
-run's device
+data needs, its bytes every lane of the rows written; seed_hits' and
+chain_dp's the op counts in their sources' headers of the function's own
+work: each read's live stream lanes and a comparison sort of them, and
+each cell's scanned predecessors); the last line is the run's device
 record.  Any failure raises and exits non-zero without those two lines.
 Without a CUDA card it exits 2.  JAX, the JAX package, bench and
 __graft_entry__ are blocked from import: the port must not need them.
@@ -128,7 +145,9 @@ MAIN_SHAPES = {"wf_global": "iden_only (512,512) B=4096",
                "profile_dp": "T=640 W=128 B=512",
                "profile_dp_full": "T=128 W=full B=704",
                "profile_bt": "T=640 W=128 B=512",
-               "myers_hw": "largest launch of -5 -3 -f 2"}
+               "myers_hw": "largest launch of -5 -3 -f 2",
+               "seed_hits": "slice chunk k=8 w=1 B=512 packed",
+               "chain_dp": "slice chunk hits window=full B=512"}
 # wf_ext's lanes a thread timed at the slice's extension shapes, beside
 # the choice of ops/wavefront.ext_lanes
 EXT_LANES_SWEEP = ((512, 640), (512, 256))
@@ -173,6 +192,34 @@ OPS_PER_CELL = {"wf_global iden_only": 51, "wf_global tleft": 70,
 # csrc/myers_hw.cu's myers_step and its loop; both passes
 MYERS_OPS_PER_COL_WORD = 55
 MYERS_OPS_PER_COL = 20
+# seed_hits: int32 ops a stream lane and key base, a lane, a sort compare
+# and a binary-search step (32- / 64-bit words), and a lane and window
+# offset of each w > 1 pass (csrc/seed_hits.cu's header)
+SEED_OPS_KEY_BASE, SEED_OPS_LANE, SEED_OPS_W = 6, 30, 8
+SEED_OPS_CMP, SEED_OPS_SEARCH = {False: 10, True: 16}, {False: 6, True: 9}
+# chain_dp: int32 ops a predecessor lane scanned (get_con_score and the
+# compare with the running maximum) and a cell (csrc/chain_dp.cu's header)
+CHAIN_OPS_PER_LANE, CHAIN_OPS_PER_CELL = 29, 20
+# phase 8's seed_hits checks: (label, reads, k, w, hpc, packed hits)
+SEED_CASES = [("slice chunk k=8 w=1 B=512 packed", "slice", 8, 1, False,
+               True),
+              ("periods 12.3 kb k=8 B=128 packed", "cdna", 8, 1, False, True),
+              ("slice chunk -H B=512 packed", "slice", 8, 1, True, True),
+              ("slice chunk w=5 B=512 packed", "slice", 8, 5, False, True),
+              ("slice chunk k=16 B=512 64-bit words", "slice", 16, 1, False,
+               False),
+              ("40 kb reads B=8 global scratch, 64-bit words", "long", 8, 1,
+               False, False)]
+CHAIN_WINDOWS = (None, 64)      # full (the plane's width L) and 64
+# phase 8's slice runs: the packed route, seeding alone and chaining too,
+# then the v1 route (collect_hits_batch, chain_dp at the hit bucket)
+DEVICE_SEED_RUNS = (("TH_DEVICE_SEED=1", {"TH_DEVICE_SEED": "1"}),
+                    ("TH_DEVICE_SEED=1 TH_DEVICE_CHAIN=1",
+                     {"TH_DEVICE_SEED": "1", "TH_DEVICE_CHAIN": "1"}),
+                    ("TH_DEVICE_SEED=1 TH_DEVICE_CHAIN=1 TH_OFFLOAD_V1=1",
+                     {"TH_DEVICE_SEED": "1", "TH_DEVICE_CHAIN": "1",
+                      "TH_OFFLOAD_V1": "1"}))
+DEVICE_SEED_ENV = ("TH_DEVICE_SEED", "TH_DEVICE_CHAIN", "TH_OFFLOAD_V1")
 
 
 def nvidia_smi(query: str) -> str:
@@ -251,9 +298,10 @@ class Checks:
         return self.only is None or kernel in self.only
 
     def run(self, kernel, label, kern_fn, plain_fn, work, select=None,
-            reps=5, first_fn=None):
+            reps=5, first_fn=None, library_fn=None):
         """Compare, then time and bound (work() -> (integer ops, bytes));
-        with first_fn, the first version too (equal, timed beside); the
+        with first_fn, the first version too (equal, timed beside); with
+        library_fn, the PyTorch call timed beside (library_ms); the
         main-path shape's numbers go to the summary."""
         if not self.wants(kernel):
             return
@@ -267,16 +315,20 @@ class Checks:
             raise AssertionError(f"{kernel} {label}: max_abs_err {err}")
         ms = cuda_ms(kern_fn, reps)
         first_ms = cuda_ms(first_fn, reps) if first_fn else None
+        library_ms = cuda_ms(library_fn, reps) if library_fn else None
         self.record(kernel, label, err, ms, plain_ms, *work(),
-                    main=label == MAIN_SHAPES[kernel], first_ms=first_ms)
+                    main=label == MAIN_SHAPES[kernel], first_ms=first_ms,
+                    library_ms=library_ms)
 
     def record(self, kernel, label, err, ms, plain_ms, ops, nbytes, main,
-               first_ms=None):
+               first_ms=None, library_ms=None):
         bound_ms, by = self.card.bound(ops, nbytes)
         first = (f" first_version_ms={first_ms:.4f} ({first_ms / ms:.2f}x)"
                  if first_ms else "")
+        lib = (f" library_ms={library_ms:.4f}" if library_ms is not None
+               else "")
         print(f"check {kernel} {label}: max_abs_err={err} ms={ms:.4f}"
-              f"{first} plain_ms={plain_ms:.2f} bound_ms={bound_ms:.4f} "
+              f"{first}{lib} plain_ms={plain_ms:.2f} bound_ms={bound_ms:.4f} "
               f"({by}: {ops:.0f} int ops, {nbytes:.0f} bytes) share of "
               f"bound {bound_ms / ms:.4f}", flush=True)
         row = self.rows.setdefault(kernel, {"max_abs_err": 0})
@@ -286,6 +338,7 @@ class Checks:
                        bound_by=by)
             if first_ms:
                 row["first_version_ms"] = first_ms
+            row["library_ms"] = library_ms
 
 
 def _mutate(rng, u, err):
@@ -616,20 +669,39 @@ def records_by_read(text: str, fmt: int = 1) -> dict:
     return out
 
 
-def phase_slice(tmp, dev):
-    from tidehunter_tpu_torch import _kernels as K
-    from tidehunter_tpu_torch.engine import Engine
+def slice_reads():
+    """The slice's SLICE_READS synth_read reads (seed 42)."""
     from tidehunter_tpu_torch.evals.synth import synth_read
     from tidehunter_tpu_torch.io.fastx import FastxRecord
+
+    rng = np.random.default_rng(42)
+    return [FastxRecord(name=f"r2c2_{i}", comment="", seq=synth_read(rng))
+            for i in range(SLICE_READS)]
+
+
+def period_populations():
+    """Phase 5's populations (seed 43), one list of reads each."""
+    from tidehunter_tpu_torch.evals.synth import synth_read
+    from tidehunter_tpu_torch.io.fastx import FastxRecord
+
+    rng = np.random.default_rng(43)
+    return [[FastxRecord(name=f"{name}_{i}", comment="",
+                         seq=synth_read(rng, unit_len, copies))
+             for i in range(n)]
+            for name, n, unit_len, copies in PERIOD_POPULATIONS]
+
+
+def phase_slice(tmp, dev):
+    """Returns the timed run's launches and (input file, its output)."""
+    from tidehunter_tpu_torch import _kernels as K
+    from tidehunter_tpu_torch.engine import Engine
     from tidehunter_tpu_torch.params import Params
     from tidehunter_tpu_torch.pipeline import runner
     from tidehunter_tpu_torch.pipeline.core import tidehunter_core
     from tidehunter_tpu_torch.utils.metrics import METRICS
 
     n_reads = SLICE_READS
-    rng = np.random.default_rng(42)
-    reads = [FastxRecord(name=f"r2c2_{i}", comment="", seq=synth_read(rng))
-             for i in range(n_reads)]
+    reads = slice_reads()
     fa = os.path.join(tmp, "r2c2.fa")
     with open(fa, "w") as f:
         f.writelines(f">{r.name}\n{r.seq}\n" for r in reads)
@@ -682,7 +754,7 @@ def phase_slice(tmp, dev):
     print(f"slice oracle: {len(check)} reads ({n_rec} records) "
           f"byte-identical with tidehunter_core ({oracle_s:.1f} s host)",
           flush=True)
-    return launches
+    return launches, (fa, sink.getvalue())
 
 
 def trace_run(run, dev, label):
@@ -778,21 +850,14 @@ def phase_periods(tmp, dev):
     launched, the timed run once more under torch.profiler, and the timed
     run's records of the first PERIOD_ORACLE_READS reads of each
     population against tidehunter_core.  Returns the launches of the timed
-    run, K3's as its full-width rounds."""
+    run, K3's as its full-width rounds, and (input file, its output)."""
     from tidehunter_tpu_torch import _kernels as K
     from tidehunter_tpu_torch.engine import Engine
-    from tidehunter_tpu_torch.evals.synth import synth_read
-    from tidehunter_tpu_torch.io.fastx import FastxRecord
     from tidehunter_tpu_torch.params import Params
     from tidehunter_tpu_torch.pipeline import runner
     from tidehunter_tpu_torch.utils.metrics import METRICS
 
-    rng = np.random.default_rng(43)
-    pops = []
-    for name, n, unit_len, copies in PERIOD_POPULATIONS:
-        pops.append([FastxRecord(name=f"{name}_{i}", comment="",
-                                 seq=synth_read(rng, unit_len, copies))
-                     for i in range(n)])
+    pops = period_populations()
     reads = [r for pop in pops for r in pop]
     fa = os.path.join(tmp, "periods.fa")
     with open(fa, "w") as f:
@@ -866,7 +931,7 @@ def phase_periods(tmp, dev):
               f"records) byte-identical with tidehunter_core", flush=True)
     print(f"periods oracle: {len(check)} reads in {oracle_s:.1f} s over a "
           f"pool of host processes", flush=True)
-    return {**launches, "profile_dp_full": full}
+    return {**launches, "profile_dp_full": full}, (fa, sink.getvalue())
 
 
 # phase 6: (label, population, CLI arguments) of each option run
@@ -1077,6 +1142,235 @@ def phase_full_width(dev):
           f"{int(full)} full-width rounds", flush=True)
 
 
+def seed_batch(key, dev):
+    """The codes [B, L] and lengths [B] of one SEED_CASES population on
+    dev: the slice's first chunk, phase 5's 12.3 kb reads, or 8 reads of
+    ~40 kb (past the shared-memory route)."""
+    from tidehunter_tpu_torch.evals.synth import synth_read
+    from tidehunter_tpu_torch.io.codec import encode
+    from tidehunter_tpu_torch.ops.seeding_device import pad_batch
+
+    if key == "slice":
+        seqs = [r.seq for r in slice_reads()[:512]]
+    elif key == "cdna":
+        seqs = [r.seq for r in period_populations()[-1]]
+    else:
+        rng = np.random.default_rng(45)
+        seqs = [synth_read(rng, 4000, 10) for _ in range(8)]
+    batch, lens = pad_batch([encode(x) for x in seqs])
+    return torch.as_tensor(batch, device=dev), torch.as_tensor(lens,
+                                                                device=dev)
+
+
+def seed_ops(bseq, lens, k, w, hpc, wide) -> float:
+    """The seeding function's integer ops on these reads (SEED_OPS_*), not
+    those of seed_hits' own sort network: a row of stream length s and
+    g = ceil(log2 s) costs s (k key bases + a lane + two w passes + g + 1
+    search steps) and s * g sort compares, over the live words only."""
+    b = bseq.cpu().numpy()
+    ops = 0.0
+    for row, n in zip(b, lens.tolist()):
+        s = (int(np.count_nonzero(row[1:n] != row[:n - 1])) + 1
+             if hpc and n else n)
+        g = max(0, int(max(s, 1) - 1).bit_length())
+        ops += s * (SEED_OPS_KEY_BASE * k + SEED_OPS_LANE
+                    + (2 * SEED_OPS_W * w if w > 1 else 0)
+                    + SEED_OPS_SEARCH[wide] * (g + 1)
+                    + SEED_OPS_CMP[wide] * g)
+    return ops
+
+
+def check_seed(checks, dev):
+    """seed_hits against seed_plain (packed by pack_hits where the case
+    packs) at SEED_CASES, exact; library: torch.sort over the same seed
+    words, one row a read (32-bit where they pack, else 64-bit)."""
+    from tidehunter_tpu_torch.ops import seeding_device as SD
+    from tidehunter_tpu_torch.params import Params
+
+    mtp = Params()
+    batches = {}
+    for label, key, k, w, hpc, packed in SEED_CASES:
+        if key not in batches:
+            batches[key] = seed_batch(key, dev)
+        bseq, lens = batches[key]
+        B, L = bseq.shape
+        kw = dict(k=k, use_hpc=hpc, min_p=mtp.min_p, max_p=mtp.max_p, w=w)
+        wide = not SD.packed_ok(k, L)
+        pb = SD.pos_bits(L)
+        if packed:
+            def kern(kw=kw):
+                return SD.collect_hits_packed(bseq, lens, **kw)
+
+            def plain(kw=kw, pb=pb):
+                e, p, n, fb = SD.seed_plain(bseq, lens, **kw)
+                return SD.pack_hits(e, p, n, pb), n, fb
+            out_bytes = B * L * 4 + B * 5
+        else:
+            def kern(kw=kw):
+                return SD.collect_hits_batch(bseq, lens, **kw)
+
+            def plain(kw=kw):
+                return SD.seed_plain(bseq, lens, **kw)
+            out_bytes = B * L * 8 + B * 5
+        key_, pos, valid, _ = SD._keys_valid_positions(
+            bseq, lens, k=k, use_hpc=hpc, w=w)
+        words = (torch.where(valid, (key_ << pb) | pos, 2**31 - 1).int()
+                 if not wide else
+                 torch.where(valid, (key_ << 31) | pos, SD.INT64_MAX))
+        checks.run("seed_hits", label, kern, plain,
+                   lambda k=k, w=w, hpc=hpc, wide=wide, ob=out_bytes: (
+                       seed_ops(bseq, lens, k, w, hpc, wide),
+                       _nbytes(bseq, lens) + ob),
+                   library_fn=lambda words=words: torch.sort(words, dim=1))
+
+
+def check_chain(checks, dev):
+    """chain_dp against chain_dp_plain at the main path's launch, exact:
+    the slice chunk packed and seeded as offload.device_seed_chain packs
+    and seeds it (k=8, w=1), its hit words decoded into [B, L] planes (L =
+    the longest read, -1 past n_hits) at window = L, then at window 64.
+    The bound counts the predecessor lanes the sequential scan needs
+    (chain_dp_plain's scan_lanes)."""
+    from tidehunter_tpu_torch.io.codec import encode
+    from tidehunter_tpu_torch.ops import chaining_device as CD
+    from tidehunter_tpu_torch.ops import offload
+    from tidehunter_tpu_torch.ops import seeding_device as SD
+    from tidehunter_tpu_torch.params import Params
+
+    mtp = Params()
+    bseqs = [encode(r.seq) if len(r.seq) >= mtp.k else None
+             for r in slice_reads()[:512]]
+    L = max(len(b) for b in bseqs if b is not None)
+    arr, lens, _ = offload.pack_reads(bseqs, len(bseqs), L)
+    ph, n, _ = SD.collect_hits_packed(
+        torch.as_tensor(arr, device=dev), torch.as_tensor(lens, device=dev),
+        k=mtp.k, use_hpc=bool(mtp.hpc), min_p=mtp.min_p, max_p=mtp.max_p,
+        w=mtp.w)
+    pb = SD.pos_bits(L)
+    ends, periods = ph >> pb, ph & ((1 << pb) - 1)
+    B = ends.shape[0]
+    for window in CHAIN_WINDOWS:
+        W = window or L
+        lanes = {}
+
+        def plain(W=W, lanes=lanes):
+            *out, lanes["n"] = CD.chain_dp_plain(ends, periods, n, k=mtp.k,
+                                                 window=W, scan_lanes=True)
+            return tuple(out)
+
+        checks.run("chain_dp",
+                   f"slice chunk hits window={'full' if window is None else W}"
+                   f" B={B}",
+                   lambda W=W: CD.chain_dp_batch(ends, periods, n, k=mtp.k,
+                                                 window=W), plain,
+                   lambda lanes=lanes: (
+                       CHAIN_OPS_PER_LANE * lanes["n"]
+                       + CHAIN_OPS_PER_CELL * float(n.double().sum()),
+                       _nbytes(ends, periods, n) + B * L * 8 + B),
+                   reps=3)
+
+
+def phase_seed_checks(checks, dev):
+    """Phase 8's kernel checks (those of checks.only with --kernels)."""
+    if checks.wants("seed_hits"):
+        check_seed(checks, dev)
+    if checks.wants("chain_dp"):
+        check_chain(checks, dev)
+
+
+def phase_device_seed(tmp, dev, slice_run, periods_run):
+    """The slice through the runner under each DEVICE_SEED_RUNS setting (a
+    warm and a timed run): reads/s, stage timers, reroutes and launches;
+    seed_hits must launch (chain_dp too with TH_DEVICE_CHAIN=1) and every
+    record must equal phase 4's timed run's.  Then one run of the periods
+    path with the second setting's switches, equal to phase 5's output.
+    Returns each kernel's launches in its main run (seed_hits: the first
+    setting's, chain_dp: the second's)."""
+    from tidehunter_tpu_torch import _kernels as K
+    from tidehunter_tpu_torch.engine import Engine
+    from tidehunter_tpu_torch.params import Params
+    from tidehunter_tpu_torch.pipeline import runner
+    from tidehunter_tpu_torch.utils.metrics import METRICS
+
+    saved = {k: os.environ.get(k) for k in DEVICE_SEED_ENV}
+
+    def set_env(env):
+        for k in DEVICE_SEED_ENV:
+            os.environ.pop(k, None)
+        os.environ.update(env)
+
+    mtp = Params()
+    mtp.chunk_read_n = 512
+    launches = {}
+    try:
+        for label, env in DEVICE_SEED_RUNS:
+            set_env(env)
+            engine = Engine(mtp, device=dev.type)
+            fa, want = slice_run
+            runner.run(fa, mtp, out=io.StringIO(), process_chunk=engine)
+            sync(dev)
+            METRICS.reset()
+            K.reset_launches()
+            sink = io.StringIO()
+            t0 = time.perf_counter()
+            metrics = runner.run(fa, mtp, out=sink, process_chunk=engine)
+            sync(dev)
+            wall = time.perf_counter() - t0
+            engine.close()
+            got = {k: v for k, v in K.launches().items() if v}
+            snap = METRICS.snapshot()
+            per_chunk = snap.get("time_device_seed_s", 0) / metrics.chunks
+            print(f"device seed {label}: {metrics.reads} reads in "
+                  f"{wall:.3f} s = {metrics.reads / wall:.2f} reads/s; "
+                  f"device_seed {per_chunk:.4f} s a chunk over "
+                  f"{metrics.chunks} chunks; offload_seed_fb "
+                  f"{int(snap.get('offload_seed_fb', 0))} offload_chain_fb "
+                  f"{int(snap.get('offload_chain_fb', 0))}; launches "
+                  f"{json.dumps(got)}", flush=True)
+            print(f"device seed {label} stages: " + " ".join(
+                f"{k}={v}" for k, v in sorted(snap.items())), flush=True)
+            need = ["seed_hits"] + (["chain_dp"] if "TH_DEVICE_CHAIN" in env
+                                    else [])
+            idle = [k for k in need if not got.get(k)]
+            if idle:
+                raise AssertionError(f"device seed {label}: not launched: "
+                                     f"{idle}")
+            if sink.getvalue() != want:
+                raise AssertionError(f"device seed {label}: records differ "
+                                     f"from phase 4's")
+            print(f"device seed {label}: all {metrics.reads} reads' records "
+                  f"byte-identical with phase 4's host-seeded run",
+                  flush=True)
+            for k in need:
+                launches.setdefault(k, got[k])
+        fa, want = periods_run
+        set_env(DEVICE_SEED_RUNS[1][1])
+        engine = Engine(mtp, device=dev.type)
+        K.reset_launches()
+        sink = io.StringIO()
+        t0 = time.perf_counter()
+        metrics = runner.run(fa, mtp, out=sink, process_chunk=engine)
+        sync(dev)
+        wall = time.perf_counter() - t0
+        engine.close()
+        got = {k: v for k, v in K.launches().items() if v}
+        if sink.getvalue() != want:
+            raise AssertionError("device seed periods: records differ from "
+                                 "phase 5's")
+        print(f"device seed periods {DEVICE_SEED_RUNS[1][0]}: "
+              f"{metrics.reads} reads in {wall:.3f} s = "
+              f"{metrics.reads / wall:.2f} reads/s (one run); launches "
+              f"{json.dumps(got)}; records byte-identical with phase 5's",
+              flush=True)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return launches
+
+
 KERNEL_META = {
     "wf_global": ("tidehunter_tpu_torch/csrc/wavefront.cu",
                   "tidehunter_tpu/ops/wavefront.py:154"),
@@ -1096,6 +1390,12 @@ KERNEL_META = {
     # a lax.scan, not a Pallas kernel: the hand kernel of the adapter path
     "myers_hw": ("tidehunter_tpu_torch/csrc/myers_hw.cu",
                  "tidehunter_tpu/ops/myers_jax.py:51"),
+    # XLA sort dataflows and a lax.while_loop, not Pallas kernels: the
+    # hand kernels of device seeding (TH_DEVICE_SEED, TH_DEVICE_CHAIN)
+    "seed_hits": ("tidehunter_tpu_torch/csrc/seed_hits.cu",
+                  "tidehunter_tpu/ops/seeding_jax.py:243"),
+    "chain_dp": ("tidehunter_tpu_torch/csrc/chain_dp.cu",
+                 "tidehunter_tpu/ops/chaining_jax.py:63"),
 }
 
 
@@ -1150,25 +1450,32 @@ def main(argv=None) -> int:
           f"({time.perf_counter() - t0:.1f} s; port "
           f"{os.path.dirname(os.path.abspath(K.__file__))})", flush=True)
     if only:
+        phase_seed_checks(checks, dev)
         return 0
     t0 = time.perf_counter()
     launches = {"wf_dtype_probe": phase_probe(checks, dev)}
     print(f"probe: all variants equal probe_plain "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
     with tempfile.TemporaryDirectory() as tmp:
-        launches.update(phase_slice(tmp, dev))
+        slice_launches, slice_run = phase_slice(tmp, dev)
+        launches.update(slice_launches)
         t0 = time.perf_counter()
-        launches["profile_dp_full"] = phase_periods(tmp, dev)[
-            "profile_dp_full"]
+        period_launches, periods_run = phase_periods(tmp, dev)
+        launches["profile_dp_full"] = period_launches["profile_dp_full"]
         print(f"periods phase: {time.perf_counter() - t0:.1f} s", flush=True)
         t0 = time.perf_counter()
         launches["myers_hw"], largest = phase_options(tmp, dev)
         print(f"options phase: {time.perf_counter() - t0:.1f} s", flush=True)
-    seq, meta, qmax = largest
-    print(f"myers_hw main-path launch: B={meta.shape[1]}, longest query "
-          f"{qmax} bp", flush=True)
-    myers_check(checks, MAIN_SHAPES["myers_hw"], seq, meta, qmax)
-    phase_full_width(dev)
+        seq, meta, qmax = largest
+        print(f"myers_hw main-path launch: B={meta.shape[1]}, longest query "
+              f"{qmax} bp", flush=True)
+        myers_check(checks, MAIN_SHAPES["myers_hw"], seq, meta, qmax)
+        phase_full_width(dev)
+        t0 = time.perf_counter()
+        phase_seed_checks(checks, dev)
+        launches.update(phase_device_seed(tmp, dev, slice_run, periods_run))
+        print(f"device seed phase: {time.perf_counter() - t0:.1f} s",
+              flush=True)
 
     rows = []
     for name, (src, repl) in KERNEL_META.items():
@@ -1180,9 +1487,10 @@ def main(argv=None) -> int:
                      "bound_ms": row["bound_ms"],
                      "bound_by": row["bound_by"],
                      # no single PyTorch call computes an affine-gap DP
-                     # wavefront, a profile-POA DP, its backtrack or a
-                     # bit-parallel edit-distance search
-                     "library_ms": None})
+                     # wavefront, a profile-POA DP, its backtrack, a
+                     # bit-parallel edit-distance search or the chain DP;
+                     # seed_hits' is torch.sort over its seed words
+                     "library_ms": row.get("library_ms")})
         for extra in ("variants_ms", "first_version_ms"):
             if extra in row:
                 rows[-1][extra] = row[extra]

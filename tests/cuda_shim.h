@@ -6,7 +6,8 @@
 // diverge across a shuffle deadlocks here, as the CUDA contract forbids).
 // Shared memory is filled with 0xA5 bytes, not zeros, as the card gives
 // no initial value.  cp.async copies (cuda_pipeline.h) are synchronous.
-// Intrinsics compute their exact integer definitions.  cudaLaunchKernelEx
+// Intrinsics compute their exact integer definitions; a ballot is a
+// barrier of the warp like a shuffle.  cudaLaunchKernelEx
 // runs the CTAs of a thread-block cluster at once: cooperative_groups'
 // this_cluster().sync() is a barrier of all their threads and
 // map_shared_rank() points into another CTA's shared memory.  The SM count
@@ -141,6 +142,20 @@ inline int __shfl_xor_sync(unsigned, int v, int m) {
 inline int __shfl_sync(unsigned, int v, int src) {
   return shfl_impl(v, [src](int) { return src & 31; });
 }
+
+// the mask of the warp's lanes whose pred is nonzero
+inline unsigned __ballot_sync(unsigned, int pred) {
+  WarpCtx* w = my_warp();
+  const int lane = threadIdx.x & 31;
+  w->vals[lane] = pred != 0;
+  w->bar.arrive_and_wait();
+  unsigned m = 0;
+  for (int i = 0; i < 32; ++i) m |= (unsigned)(w->vals[i] != 0) << i;
+  w->bar.arrive_and_wait();
+  return m;
+}
+inline int __clz(int x) { return x ? __builtin_clz((unsigned)x) : 32; }
+inline int __ffs(int x) { return __builtin_ffs(x); }
 
 // cuda_pipeline.h's primitives: the copy is done at once, so commit and
 // wait have nothing left to do

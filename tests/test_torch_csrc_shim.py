@@ -3,10 +3,13 @@
 csrc/wavefront.cu (``wf_global``, ``wf_ext``), csrc/profile_dp.cu
 (``profile_dp``: its warp kernel and its strips, one CTA or a cluster a
 region; ``profile_dp_first``, the first version), csrc/profile_bt.cu
-(``profile_bt``) and csrc/myers_hw.cu (``myers_hw``) are compiled with the host's C++ compiler over
-tests/cuda_shim.h, which emulates the CUDA subset they use (threads, warp
-shuffles, barriers, shared memory, cp.async copies, thread-block clusters
-and their distributed shared memory, the DPX intrinsics), and called
+(``profile_bt``), csrc/myers_hw.cu (``myers_hw``), csrc/seed_hits.cu
+(``seed_hits``: shared-memory and global-scratch routes, 32- and 64-bit
+seed words) and csrc/chain_dp.cu (``chain_dp``) are compiled with the
+host's C++ compiler over tests/cuda_shim.h, which emulates the CUDA subset
+they use (threads, warp shuffles and ballots, barriers, shared memory,
+cp.async copies, thread-block clusters and their distributed shared
+memory, the DPX intrinsics), and called
 through the same C entry points and argument lists that _kernels.py
 binds.  Every output must equal the port's plain version exactly.  This
 runs the kernels' own index arithmetic, shuffles, tiles and epilogues
@@ -25,15 +28,21 @@ import pytest
 import test_torch_kernel_order as KO
 import test_torch_myers as TM
 import torch
+from test_chaining_jax import _random_read
+from test_offload import _random_reads
 
+from tidehunter_tpu.ops.seeding import collect_tandem_repeat_hits
 from tidehunter_tpu_torch import _kernels as K
+from tidehunter_tpu_torch.ops import chaining_device as CD
 from tidehunter_tpu_torch.ops import msa_device as TMD
+from tidehunter_tpu_torch.ops import seeding_device as SD
 from tidehunter_tpu_torch.ops import myers_device as MY
 from tidehunter_tpu_torch.ops import wavefront as TW
 
 torch.set_num_threads(1)
 
-SOURCES = ("wavefront.cu", "profile_dp.cu", "profile_bt.cu", "myers_hw.cu")
+SOURCES = ("wavefront.cu", "profile_dp.cu", "profile_bt.cu", "myers_hw.cu",
+           "seed_hits.cu", "chain_dp.cu")
 
 
 def _translate(src: str) -> str:
@@ -66,11 +75,16 @@ def lib(tmp_path_factory):
     dll = ctypes.CDLL(str(so))
     fns = {}
     for k in (K.WF_GLOBAL, K.WF_EXT, K.PROFILE_DP, K.PROFILE_DP_FIRST,
-              K.PROFILE_BT, K.MYERS_HW):
+              K.PROFILE_BT, K.MYERS_HW, K.SEED_HITS, K.CHAIN_DP):
         fn = getattr(dll, k.name)
         fn.argtypes = [*k.argtypes, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         fns[k.name] = fn
+    for name in ("seed_hits_row_bytes", "seed_hits_scratch_bytes"):
+        fn = getattr(dll, name)
+        fn.argtypes = [ctypes.c_int] * (4 if "row" in name else 5)
+        fn.restype = ctypes.c_longlong
+        fns[name] = fn
     return fns
 
 
@@ -365,3 +379,142 @@ def test_myers_hw_source_refuses_bad_words(lib):
     out = np.zeros((3, 1), np.int32)
     assert lib["myers_hw"](_p(seq.numpy()), _p(meta.numpy()), 1, 3,
                            _p(out), None) != 0
+
+
+def _seed_reads(k, w, hpc, n, L):
+    """Tandem and random reads of up to L bases (no N with w > 1, so the
+    minimizer rows are served; one all-N and one poly-T read with w = 1),
+    a 3 bp read and an empty one."""
+    rng = np.random.default_rng(k * 31 + w + L)
+    reads = _random_reads(rng, n, L, n_frac=0.0 if w > 1 else 0.02)
+    reads[0] = np.tile(rng.integers(0, 4, 37), L)[:L].astype(np.uint8)
+    reads += [np.full(90, 3, np.uint8), np.zeros(3, np.uint8),
+              np.zeros(0, np.uint8)]
+    if w == 1:
+        reads.append(np.full(80, 4, np.uint8))
+    return reads
+
+
+def _seed_run(lib, batch, lens, k, w, hpc, min_p, max_p, threads,
+              packed=False, scratch=False):
+    B, L = batch.shape
+    wide = not SD.packed_ok(k, L)
+    ends = np.full((B, L), 0x55, np.int32)
+    periods = None if packed else np.full((B, L), 0x55, np.int32)
+    n = np.full(B, -7, np.int32)
+    fb = np.full(B, 7, np.uint8)
+    scr = (np.zeros(B * lib["seed_hits_row_bytes"](L, int(hpc), w,
+                                                    int(wide)), np.uint8)
+           if scratch else None)
+    rc = lib["seed_hits"](_p(batch), _p(lens), B, L, k, w, int(hpc), min_p,
+                          max_p, int(wide), SD.pos_bits(L), int(packed),
+                          threads, _p(scr), _p(ends), _p(periods), _p(n),
+                          _p(fb), None)
+    assert rc == 0
+    return ends, periods, n, fb.astype(bool)
+
+
+# (k, w, hpc, min_p, max_p, threads, global scratch): 32-bit seed words
+# at 128 and 256 threads, -H, w = 5 (with -H too), min_p near 0, k = 16
+# (64-bit words: the poly-T key equals the 32-bit sentinel), and both
+# word widths on the global-scratch route
+@pytest.mark.parametrize("k,w,hpc,min_p,max_p,threads,scratch", [
+    (8, 1, False, 30, 10000, 128, False), (8, 1, False, 30, 10000, 256,
+                                           False),
+    (8, 1, True, 30, 10000, 256, False), (8, 5, False, 30, 10000, 128,
+                                          False),
+    (8, 5, True, 30, 10000, 256, False), (5, 1, False, 2, 50, 128, False),
+    (16, 1, False, 30, 10000, 256, False), (16, 3, False, 5, 10000, 128,
+                                            False),
+    (8, 1, True, 30, 10000, 128, True), (16, 1, False, 30, 10000, 128,
+                                         True)],
+    ids=["k8_t128", "k8_t256", "hpc", "w5", "w5_hpc", "k5_minp2", "k16",
+         "k16_w3_minp5", "global_hpc", "global_k16"])
+def test_seed_hits_source_matches_plain(lib, k, w, hpc, min_p, max_p,
+                                        threads, scratch):
+    """Every output of every row (fallback rows too) equals seed_plain's,
+    at L = 1024, and the non-fallback rows equal the host oracle."""
+    reads = _seed_reads(k, w, hpc, 6, 1024)
+    batch, lens = SD.pad_batch(reads, 1024)
+    got = _seed_run(lib, batch, lens, k, w, hpc, min_p, max_p, threads,
+                    scratch=scratch)
+    want = SD.seed_plain(torch.from_numpy(batch), torch.from_numpy(lens),
+                         k=k, use_hpc=hpc, min_p=min_p, max_p=max_p, w=w)
+    for g, x in zip(got, want):
+        np.testing.assert_array_equal(g, x.numpy())
+    ends, periods, n, fb = got
+    assert (~fb).sum() >= 4
+    for i, r in enumerate(reads):
+        if not fb[i]:
+            we, wp = collect_tandem_repeat_hits(r, k, w, hpc, min_p, max_p)
+            np.testing.assert_array_equal(ends[i, :n[i]], we)
+            np.testing.assert_array_equal(periods[i, :n[i]], wp)
+
+
+def test_seed_hits_source_packed_and_routes(lib):
+    """The packed output equals collect_hits_packed's plain result; the
+    scratch sizes follow the layout (shared memory up to the cap)."""
+    reads = _seed_reads(8, 1, False, 5, 700)
+    batch, lens = SD.pad_batch(reads, 700)
+    ph, _, n, fb = _seed_run(lib, batch, lens, 8, 1, False, 30, 10000, 128,
+                             packed=True)
+    want = SD.collect_hits_packed(torch.from_numpy(batch),
+                                  torch.from_numpy(lens), k=8,
+                                  use_hpc=False, min_p=30, max_p=10000)
+    np.testing.assert_array_equal(ph, want[0].numpy())
+    np.testing.assert_array_equal(n, want[1].numpy())
+    # sort words for the next power of two, keys, stream and valid bytes,
+    # rounded up to 16
+    assert lib["seed_hits_row_bytes"](700, 0, 1, 0) == -(
+        -(1024 * 4 + 700 * 6) // 16) * 16
+    assert lib["seed_hits_scratch_bytes"](3, 4400, 0, 1, 0) == 0
+    big = lib["seed_hits_row_bytes"](20000, 1, 5, 1)
+    assert lib["seed_hits_scratch_bytes"](3, 20000, 1, 5, 1) == 3 * big
+    # a packed launch of 64-bit words is refused before any write
+    out = np.full((1, 16), 0x55, np.int32)
+    assert lib["seed_hits"](_p(batch[:1, :16].copy()), _p(lens[:1]), 1, 16,
+                            16, 1, 0, 30, 100, 1, 4, 1, 128, None, _p(out),
+                            None, _p(n), _p(fb.astype(np.uint8)),
+                            None) == 1
+    assert (out == 0x55).all()
+
+
+def _chain_batch(seed, rows):
+    rng = np.random.default_rng(seed)
+    hits = [collect_tandem_repeat_hits(_random_read(rng), 8, 1, False, 30,
+                                       10000) for _ in range(rows)]
+    hits.append((np.array([100, 200, 200, 300]), np.array([50, 50, 60, 50])))
+    hits.append((np.array([500]), np.array([40])))
+    L = max(len(e) for e, _ in hits)
+    ends = np.full((len(hits), L), 2**31 - 1, np.int32)
+    periods = ends.copy()
+    n = np.zeros(len(hits), np.int32)
+    for i, (e, p) in enumerate(hits):
+        ends[i, :len(e)], periods[i, :len(p)], n[i] = e, p, len(e)
+    return ends, periods, n
+
+
+# (window, seed): the fuzz corpus at full window (never incomplete), at
+# 512 and at 64 (incomplete cells flag their rows); a non-singleton end
+# group (gated) and a one-hit row in every batch
+@pytest.mark.parametrize("window,seed", [(None, 7), (512, 7), (64, 11)])
+def test_chain_dp_source_matches_plain(lib, window, seed):
+    ends, periods, n = _chain_batch(seed, 14)
+    B, L = ends.shape
+    W = window or L
+    score = np.full((B, L), 0x55, np.int32)
+    frm = np.full((B, L), 0x55, np.int32)
+    fb = np.full(B, 7, np.uint8)
+    rc = lib["chain_dp"](_p(ends), _p(periods), _p(n), B, L, 8, W,
+                         _p(score), _p(frm), _p(fb), None)
+    assert rc == 0
+    want = CD.chain_dp_plain(*map(torch.from_numpy, (ends, periods, n)),
+                             k=8, window=W)
+    np.testing.assert_array_equal(score, want[0].numpy())
+    np.testing.assert_array_equal(frm, want[1].numpy())
+    np.testing.assert_array_equal(fb.astype(bool), want[2].numpy())
+    assert fb[-2] and not fb[-1]
+    if window is None:
+        assert fb.sum() == 1
+    else:               # some rows incomplete, some exact
+        assert 0 < fb[:-2].sum() < B - 2

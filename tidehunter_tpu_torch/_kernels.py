@@ -10,7 +10,9 @@ returns ``cudaGetLastError()`` after its launch, which the wrapper turns
 into an exception.
 
 Each entry point is a ``Kernel`` with a plain integer launch counter that
-counts only launches made through it.  Nothing here runs at import: the
+counts only launches made through it (under a lock: the seeding kernels
+launch from the runner's prefetch thread while the consensus kernels
+launch from the drive thread).  Nothing here runs at import: the
 CPU tests import every module of the package, and a CPU-only host has
 neither ``nvcc`` nor a card.
 """
@@ -128,6 +130,7 @@ class Kernel:
         self.argtypes = argtypes
         self.launches = 0
         self._fn = None
+        self._count = threading.Lock()
 
     def __call__(self, *args) -> None:
         import torch
@@ -142,7 +145,16 @@ class Kernel:
         if rc != 0:
             msg = load().th_error_string(rc).decode()
             raise RuntimeError(f"{self.name}: CUDA error {rc} ({msg})")
-        self.launches += 1
+        with self._count:
+            self.launches += 1
+
+
+def host_call(name: str, argtypes: list, restype, *args):
+    """A plain host function of the library (no launch, not counted)."""
+    fn = getattr(load(), name)
+    fn.argtypes = argtypes
+    fn.restype = restype
+    return fn(*args)
 
 
 # csrc/wavefront.cu
@@ -160,9 +172,14 @@ PROFILE_BT = Kernel("profile_bt", [P, I, I, I, P, P, I, P, P, P])
 WF_DTYPE_PROBE = Kernel("wf_dtype_probe", [P, P, I, I, I, I])
 # csrc/myers_hw.cu
 MYERS_HW = Kernel("myers_hw", [P, P, I, I, P])
+# csrc/seed_hits.cu
+SEED_HITS = Kernel("seed_hits", [P, P, I, I, I, I, I, I, I, I, I, I, I, P,
+                                 P, P, P, P])
+# csrc/chain_dp.cu
+CHAIN_DP = Kernel("chain_dp", [P, P, P, I, I, I, I, P, P, P])
 
 KERNELS = (WF_GLOBAL, WF_EXT, PROFILE_DP, PROFILE_DP_FIRST, PROFILE_BT,
-           WF_DTYPE_PROBE, MYERS_HW)
+           WF_DTYPE_PROBE, MYERS_HW, SEED_HITS, CHAIN_DP)
 
 
 def reset_launches() -> None:

@@ -11,7 +11,9 @@ the device), ``--metrics FILE`` (or ``TH_METRICS``), ``--profile PATH`` (a
 torch.profiler Chrome/Perfetto trace of the run), ``--shard`` and
 ``--resume``.  ``--dist`` is not supported by the port and, like a device
 that cannot be used, ends the run with an error; nothing falls back to the
-host.
+host.  Device seeding and chaining are selected, as in the JAX CLI, by
+the environment alone: ``TH_DEVICE_SEED=1``, ``TH_DEVICE_CHAIN=1`` and
+``TH_OFFLOAD_V1=1`` (see ``--help``).
 """
 
 from __future__ import annotations
@@ -106,6 +108,11 @@ def usage() -> int:
     e("                            profile-POA) | graph (host graph-POA, the\n")
     e("                            abPOA-faithful model, native C) [profile]\n")
     e("    not supported by the port: --dist\n")
+    e("  Environment (no reference equivalent; default: seed and chain on the host):\n")
+    e("    TH_DEVICE_SEED=1        seed on the device (seed_hits kernel)\n")
+    e("    TH_DEVICE_CHAIN=1       with TH_DEVICE_SEED=1, chain there too (chain_dp)\n")
+    e("    TH_OFFLOAD_V1=1         the unpacked seeding route even where the packed\n")
+    e("                            one fits (it always serves k > 8-ish, long reads)\n")
     e("  General options:\n")
     e("    -h --help               print this help usage information\n")
     e("    -v --version            show version number\n")
@@ -449,6 +456,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     finally:
         if out is not None:
             out.close()
+        if engine is not None:
+            engine.close()
     if prof is not None:
         prof.export_chrome_trace(extra["profile"])
     log(resource_line(), func="main")

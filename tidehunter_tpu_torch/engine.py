@@ -2,7 +2,9 @@
 ``tidehunter_tpu/engine.py``).
 
   chunk of reads
-    -> encode + seed + chain (native C)                         [host]
+    -> encode + seed + chain (native C, on -t threads)          [host]
+       (TH_DEVICE_SEED=1: seed on the card, TH_DEVICE_CHAIN=1:
+       chain there too)                                         [device]
     -> partition walks (native C; oversize windows batched)     [host/dev]
     -> consensus: profile-POA MSA + aveMatch + boundary ext     [device]
 
@@ -14,7 +16,10 @@ here with one batched call per request kind, serially.  Request kinds:
 (Myers adapter searches, ``ops/myers_device``) and ``msa``.
 
 On ``cuda`` every device call launches the hand-written kernels; on
-``cpu`` the same calls run their plain PyTorch versions.  Adapters run
+``cpu`` the same calls run their plain PyTorch versions.  Seeding and
+chaining stay on the host by default, as in the JAX engine on one device;
+the environment selects the device routes of ``Engine._device_seed``
+(``TH_DEVICE_SEED``, ``TH_DEVICE_CHAIN``, ``TH_OFFLOAD_V1``).  Adapters run
 their searches as ``hws`` rounds, and with ``-s -F`` a fourth stage drives
 the single-copy reads; ``polish`` adds the device MSA's frozen-layout
 rounds; ``msa_mode="poa"`` (the CLI's ``--msa graph``) resolves every
@@ -24,7 +29,9 @@ engine does, and keeps every other kind on the device.
 
 from __future__ import annotations
 
+import contextlib
 import os
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -33,8 +40,9 @@ import torch
 from ._kernels import require_cuda
 from .io.codec import encode
 from .io.output import TandemResult
-from .ops import ksw2, ksw2_native, wavefront
-from .ops.chaining_native import tandem_chain_native
+from .ops import ksw2, ksw2_native, offload, wavefront
+from .ops.chaining_device import chain_dp_batch
+from .ops.chaining_native import tandem_chain_from_dp, tandem_chain_native
 from .ops.msa_device import DeviceMSA
 from .ops.myers_device import hw_batch
 from .ops.partition import (
@@ -43,6 +51,7 @@ from .ops.partition import (
     partition_walk_right,
 )
 from .ops.poa_profile import profile_consensus
+from .ops.seeding_device import collect_hits_batch, pad_batch
 from .ops.seeding_native import collect_tandem_repeat_hits
 from .params import Params
 from .pipeline.consensus import (
@@ -272,6 +281,12 @@ class Engine:
             mtp.match, mtp.mismatch, mtp.gap_open1, mtp.gap_ext1,
             polish=mtp.polish, gap_open2=mtp.gap_open2,
             gap_ext2=mtp.gap_ext2, device=self.device)
+        self._pool = None           # prepare_chunk's -t threads
+        self._pool_n = 0
+        # device seeding's own stream: prepare_chunk runs on the runner's
+        # prefetch thread while finish_chunk launches on the current one
+        self._seed_stream = (torch.cuda.Stream() if device == "cuda"
+                             else None)
 
     # --- request resolution ---
 
@@ -370,22 +385,136 @@ class Engine:
     # --- chunk processing ---
 
     def prepare_chunk(self, chunk, mtp: Params):
-        """Stage 1 on the host: encode, seed and chain (native C), then the
-        partition walks (native C; a walk that meets an oversize window
-        defers to the batched drive of finish_chunk)."""
+        """Stage 1: seed and chain every read, then the partition walks
+        (native C; a walk that meets an oversize window defers to the
+        batched drive of finish_chunk).
+
+        Reads are seeded and chained on a pool of min(-t, cores) threads
+        (the native seeder and chainer release the GIL), reused across
+        chunks.  TH_DEVICE_SEED=1 seeds the chunk on the device first
+        (_device_seed); the pool then chains the device's hits on the
+        host, unless the device chained them too (TH_DEVICE_CHAIN=1)."""
+        device_hits = device_chains = None
+        if os.environ.get("TH_DEVICE_SEED", "") == "1":
+            with METRICS.timed("device_seed"):
+                device_hits, device_chains = self._device_seed(chunk, mtp)
         bseqs: List = [None] * len(chunk)
         read_chains: List = [None] * len(chunk)
-        with METRICS.timed("seed_chain"):
-            for ri, rec in enumerate(chunk):
-                if len(rec.seq) < mtp.k:
-                    read_chains[ri] = (None, [])
-                    continue
-                bseqs[ri] = encode(rec.seq)
+
+        def seed_chain(ri: int) -> None:
+            rec = chunk[ri]
+            if len(rec.seq) < mtp.k:
+                read_chains[ri] = (None, [])
+                return
+            bseqs[ri] = encode(rec.seq)
+            if device_chains is not None and device_chains[ri] is not None:
+                read_chains[ri] = device_chains[ri]
+                return
+            if device_hits is not None:
+                ends, periods = device_hits[ri]
+            else:
                 ends, periods = collect_tandem_repeat_hits(
                     bseqs[ri], mtp.k, mtp.w, mtp.hpc, mtp.min_p, mtp.max_p)
-                read_chains[ri] = tandem_chain_native(ends, periods, mtp.k)
+            read_chains[ri] = tandem_chain_native(ends, periods, mtp.k)
+
+        with METRICS.timed("seed_chain"):
+            n_workers = max(1, min(int(mtp.n_thread or 1),
+                                   os.cpu_count() or 1))
+            if n_workers > 1 and len(chunk) > 1:
+                if self._pool is None or self._pool_n != n_workers:
+                    if self._pool is not None:
+                        self._pool.shutdown(wait=False)
+                    self._pool = ThreadPoolExecutor(max_workers=n_workers)
+                    self._pool_n = n_workers
+                list(self._pool.map(seed_chain, range(len(chunk))))
+            else:
+                for ri in range(len(chunk)):
+                    seed_chain(ri)
         walked = self._partition_chunk(chunk, bseqs, read_chains, mtp)
         return chunk, bseqs, read_chains, walked
+
+    def _device_seed(self, chunk, mtp: Params):
+        """One device seeding call for the chunk: (hits_list,
+        chains_list) as ops/offload.device_seed_chain returns them.
+
+        The packed-word route (offload.device_seed_chain) whenever
+        offload.supported(k, longest read) holds and TH_OFFLOAD_V1 is not
+        1; TH_DEVICE_CHAIN=1 chains there too.  Otherwise the v1 route:
+        collect_hits_batch (64-bit seed words where the packed ones do not
+        fit: k up to 16, long reads), then, with TH_DEVICE_CHAIN=1,
+        chain_dp at window = the hit bucket (512 and up by powers of two)
+        over the rows of at most 8192 hits; a larger row, like every row
+        the seeder flags, is chained on the host."""
+        maxL = max((len(r.seq) for r in chunk), default=1)
+        dev_chain = os.environ.get("TH_DEVICE_CHAIN", "") == "1"
+        if (os.environ.get("TH_OFFLOAD_V1", "") != "1"
+                and offload.supported(mtp.k, maxL)):
+            bseqs = [encode(rec.seq) if len(rec.seq) >= mtp.k else None
+                     for rec in chunk]
+            return offload.device_seed_chain(
+                bseqs, mtp, chain_mode="device" if dev_chain else "host",
+                device=self.device, stream=self._seed_stream)
+
+        n = len(chunk)
+        encoded = [encode(rec.seq) for rec in chunk]
+        batch, lens = pad_batch(encoded)
+        stream = self._seed_stream
+        with offload.stream_scope(stream):
+            ends_d, periods_d, cnt_d, fb_d = collect_hits_batch(
+                torch.as_tensor(batch).to(self.device, non_blocking=True),
+                torch.as_tensor(lens).to(self.device, non_blocking=True),
+                k=mtp.k, use_hpc=bool(mtp.hpc), min_p=mtp.min_p,
+                max_p=mtp.max_p, w=mtp.w)
+        cnt, fb = offload.pull([cnt_d, fb_d], stream)
+        cnt_ok = np.where(fb, 0, cnt)
+        oversize = cnt_ok > 8192
+        max_hits = int(np.where(oversize, 0, cnt_ok).max()) if n else 0
+        H = int(cnt_ok.max()) if n else 0
+        planes = [ends_d[:, :H], periods_d[:, :H]]
+        chain = dev_chain and max_hits >= 2
+        with (METRICS.timed("device_chain") if chain
+              else contextlib.nullcontext()):
+            if chain:
+                Lh = 512
+                while Lh < max_hits:
+                    Lh *= 2
+                Lh = min(Lh, ends_d.shape[1])
+                with offload.stream_scope(stream):
+                    score_d, from_d, fbc_d = chain_dp_batch(
+                        ends_d[:, :Lh].contiguous(),
+                        periods_d[:, :Lh].contiguous(),
+                        cnt_d.clamp(max=Lh), k=mtp.k, window=Lh)
+                    planes += [score_d[:, :max_hits], from_d[:, :max_hits],
+                               fbc_d]
+            planes = offload.pull(planes, stream)
+        ends, periods = (a.astype(np.int64) for a in planes[:2])
+        fb_c = None
+        if chain:
+            score, from_idx = planes[2], planes[3]
+            fb_c = planes[4] | oversize
+        hits_list: List = []
+        chains_list: List = [None] * n
+        for i in range(n):
+            if fb[i]:
+                METRICS.add("offload_seed_fb")
+                hits_list.append(collect_tandem_repeat_hits(
+                    encoded[i], mtp.k, mtp.w, mtp.hpc, mtp.min_p,
+                    mtp.max_p))
+                continue
+            c = int(cnt[i])
+            e, p = ends[i, :c], periods[i, :c]
+            hits_list.append((e, p))
+            if fb_c is None:
+                continue
+            if c < 2:
+                chains_list[i] = (None, [])
+            elif fb_c[i]:
+                METRICS.add("offload_chain_fb")     # the host chainer
+            else:
+                chains_list[i] = tandem_chain_from_dp(
+                    e, p, score[i, :c].astype(np.int64),
+                    from_idx[i, :c].astype(np.int64), mtp.k)
+        return hits_list, chains_list
 
     def _partition_chunk(self, chunk, bseqs, read_chains, mtp: Params):
         cap = self.aligner.host_aln_cap
@@ -487,4 +616,8 @@ class Engine:
     __call__ = process_chunk
 
     def close(self) -> None:
-        """Nothing to release: the engine holds no threads or files."""
+        """Shut down prepare_chunk's thread pool."""
+        if self._pool is not None:
+            self._pool.shutdown(wait=False)
+            self._pool = None
+            self._pool_n = 0
