@@ -57,11 +57,12 @@ Phases, each printing its result on its own line:
   8. device seeding and chaining (TH_DEVICE_SEED, TH_DEVICE_CHAIN):
      seed_hits against its plain version, exact, at the slice's launch (the
      first 512-read chunk, k=8 w=1, packed hits), the periods path's 12.3
-     kb reads, -H, w=5, k=16 (64-bit seed words) and 40 kb reads (the
-     global-scratch route), timed beside torch.sort over the same seed
-     words; chain_dp against its plain version at the slice chunk's
-     launch (its packed hits decoded into [512, L] planes, window = L) and
-     at window 64; then the slice's 1024 reads through the runner with
+     kb reads, -H, w=5, k=16 (64-bit seed words), ~10.6 kb reads with -H
+     and w=5 (clusters of 2), 40 kb reads (clusters of 4) and ~70 kb reads
+     with -H, w=5 and 64-bit words (the global-scratch route), timed
+     beside torch.sort over the same seed words; chain_dp against its
+     plain version at the slice chunk's launch (its packed hits decoded
+     into [512, L] planes, window = L) and at window 64; then the slice's 1024 reads through the runner with
      TH_DEVICE_SEED=1, with TH_DEVICE_CHAIN=1 too, and with TH_OFFLOAD_V1=1
      as well (the v1 route; a warm and a timed run each: reads/s,
      device_seed, seed_chain, partition, the offload_*_fb reroutes and
@@ -88,6 +89,7 @@ for _name in ("jax", "jaxlib", "tidehunter_tpu", "bench", "__graft_entry__"):
     sys.modules[_name] = None    # any import of these now fails loudly
 
 import argparse  # noqa: E402
+import ctypes  # noqa: E402
 import io  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
@@ -208,8 +210,11 @@ SEED_CASES = [("slice chunk k=8 w=1 B=512 packed", "slice", 8, 1, False,
               ("slice chunk w=5 B=512 packed", "slice", 8, 5, False, True),
               ("slice chunk k=16 B=512 64-bit words", "slice", 16, 1, False,
                False),
-              ("40 kb reads B=8 global scratch, 64-bit words", "long", 8, 1,
-               False, False)]
+              ("cluster boundary ~10.6 kb -H w=5 B=128 packed", "boundary",
+               8, 5, True, True),
+              ("40 kb reads B=8 64-bit words", "long", 8, 1, False, False),
+              ("past a cluster ~70 kb -H w=5 B=8 64-bit words (global "
+               "scratch)", "past", 8, 5, True, False)]
 CHAIN_WINDOWS = (None, 64)      # full (the plane's width L) and 64
 # phase 8's slice runs: the packed route, seeding alone and chaining too,
 # then the v1 route (collect_hits_batch, chain_dp at the hit bucket)
@@ -1144,8 +1149,10 @@ def phase_full_width(dev):
 
 def seed_batch(key, dev):
     """The codes [B, L] and lengths [B] of one SEED_CASES population on
-    dev: the slice's first chunk, phase 5's 12.3 kb reads, or 8 reads of
-    ~40 kb (past the shared-memory route)."""
+    dev: the slice's first chunk, phase 5's 12.3 kb reads, 128 reads of
+    ~10.6 kb (with -H and w=5, just past one CTA's shared memory), 8 reads
+    of ~70 kb (with -H, w=5 and 64-bit words, past a cluster of 8), or 8
+    reads of ~40 kb (past one CTA)."""
     from tidehunter_tpu_torch.evals.synth import synth_read
     from tidehunter_tpu_torch.io.codec import encode
     from tidehunter_tpu_torch.ops.seeding_device import pad_batch
@@ -1154,6 +1161,12 @@ def seed_batch(key, dev):
         seqs = [r.seq for r in slice_reads()[:512]]
     elif key == "cdna":
         seqs = [r.seq for r in period_populations()[-1]]
+    elif key == "boundary":
+        rng = np.random.default_rng(46)
+        seqs = [synth_read(rng, 1150, 9) for _ in range(128)]
+    elif key == "past":
+        rng = np.random.default_rng(47)
+        seqs = [synth_read(rng, 7000, 10) for _ in range(8)]
     else:
         rng = np.random.default_rng(45)
         seqs = [synth_read(rng, 4000, 10) for _ in range(8)]
@@ -1184,6 +1197,7 @@ def check_seed(checks, dev):
     """seed_hits against seed_plain (packed by pack_hits where the case
     packs) at SEED_CASES, exact; library: torch.sort over the same seed
     words, one row a read (32-bit where they pack, else 64-bit)."""
+    from tidehunter_tpu_torch import _kernels as K
     from tidehunter_tpu_torch.ops import seeding_device as SD
     from tidehunter_tpu_torch.params import Params
 
@@ -1212,6 +1226,11 @@ def check_seed(checks, dev):
             def plain(kw=kw):
                 return SD.seed_plain(bseq, lens, **kw)
             out_bytes = B * L * 8 + B * 5
+        if key == "past" and K.host_call(
+                "seed_hits_scratch_bytes", [ctypes.c_int] * 5,
+                ctypes.c_longlong, B, L, int(hpc), w, int(wide)) <= 0:
+            raise AssertionError(f"seed_hits {label}: not the global "
+                                 f"scratch route")
         key_, pos, valid, _ = SD._keys_valid_positions(
             bseq, lens, k=k, use_hpc=hpc, w=w)
         words = (torch.where(valid, (key_ << pb) | pos, 2**31 - 1).int()
@@ -1228,8 +1247,9 @@ def check_chain(checks, dev):
     """chain_dp against chain_dp_plain at the main path's launch, exact:
     the slice chunk packed and seeded as offload.device_seed_chain packs
     and seeds it (k=8, w=1), its hit words decoded into [B, L] planes (L =
-    the longest read, -1 past n_hits) at window = L, then at window 64.
-    The bound counts the predecessor lanes the sequential scan needs
+    the longest read, -1 past n_hits) at window = L, then at window 64;
+    at each window also the row with the most hits alone (B=1, the same
+    L), with its cells and scanned lanes.  The bound counts the predecessor lanes the sequential scan needs
     (chain_dp_plain's scan_lanes)."""
     from tidehunter_tpu_torch.io.codec import encode
     from tidehunter_tpu_torch.ops import chaining_device as CD
@@ -1248,26 +1268,37 @@ def check_chain(checks, dev):
         w=mtp.w)
     pb = SD.pos_bits(L)
     ends, periods = ph >> pb, ph & ((1 << pb) - 1)
-    B = ends.shape[0]
+    top = int(torch.argmax(n))      # the row with the most hits
+    planes = {len(ends): (ends, periods, n),
+              1: (ends[top:top + 1], periods[top:top + 1], n[top:top + 1])}
     for window in CHAIN_WINDOWS:
         W = window or L
-        lanes = {}
+        wname = "full" if window is None else W
+        # the launch, then its longest row alone (B=1, the same L and
+        # window): how far one read's chain sets the launch's time
+        for B, (e, p, nh) in planes.items():
+            lanes = {}
 
-        def plain(W=W, lanes=lanes):
-            *out, lanes["n"] = CD.chain_dp_plain(ends, periods, n, k=mtp.k,
-                                                 window=W, scan_lanes=True)
-            return tuple(out)
+            def plain(W=W, lanes=lanes, e=e, p=p, nh=nh):
+                *out, lanes["n"] = CD.chain_dp_plain(e, p, nh, k=mtp.k,
+                                                     window=W,
+                                                     scan_lanes=True)
+                return tuple(out)
 
-        checks.run("chain_dp",
-                   f"slice chunk hits window={'full' if window is None else W}"
-                   f" B={B}",
-                   lambda W=W: CD.chain_dp_batch(ends, periods, n, k=mtp.k,
-                                                 window=W), plain,
-                   lambda lanes=lanes: (
-                       CHAIN_OPS_PER_LANE * lanes["n"]
-                       + CHAIN_OPS_PER_CELL * float(n.double().sum()),
-                       _nbytes(ends, periods, n) + B * L * 8 + B),
-                   reps=3)
+            label = (f"slice chunk hits window={wname} B={B}" if B > 1 else
+                     f"slice chunk's longest row window={wname} B=1")
+            checks.run("chain_dp", label,
+                       lambda W=W, e=e, p=p, nh=nh: CD.chain_dp_batch(
+                           e, p, nh, k=mtp.k, window=W), plain,
+                       lambda lanes=lanes, e=e, p=p, nh=nh, B=B: (
+                           CHAIN_OPS_PER_LANE * lanes["n"]
+                           + CHAIN_OPS_PER_CELL * float(nh.double().sum()),
+                           _nbytes(e, p, nh) + B * L * 8 + B),
+                       reps=3)
+            if B == 1:
+                print(f"chain_dp longest row: {int(nh[0])} cells, "
+                      f"{lanes['n']} predecessor lanes scanned "
+                      f"(window={wname}, L={L})", flush=True)
 
 
 def phase_seed_checks(checks, dev):

@@ -6,15 +6,23 @@
 // diverge across a shuffle deadlocks here, as the CUDA contract forbids).
 // Shared memory is filled with 0xA5 bytes, not zeros, as the card gives
 // no initial value.  cp.async copies (cuda_pipeline.h) are synchronous.
-// Intrinsics compute their exact integer definitions; a ballot is a
-// barrier of the warp like a shuffle.  cudaLaunchKernelEx
+// Intrinsics compute their exact integer definitions; a ballot or a
+// reduction is a barrier of the warp like a shuffle, an atomic a
+// std::atomic_ref operation.  cudaLaunchKernelEx
 // runs the CTAs of a thread-block cluster at once: cooperative_groups'
 // this_cluster().sync() is a barrier of all their threads and
-// map_shared_rank() points into another CTA's shared memory.  The SM count
+// map_shared_rank() points into another CTA's shared memory, which is
+// filled with 0x5A bytes when that CTA's last thread exits; between two
+// cluster barriers the CTA of rank 0 runs before the others, so that a
+// read of its shared memory after it exited, which CUDA forbids, shows
+// every time.  The SM count
 // a program reads is $CUDA_SHIM_SMS (default 132), so that a test can steer
-// a launcher's choice of cluster.
+// a launcher's choice of cluster, and the opt-in shared memory a block may
+// use is $CUDA_SHIM_SMEM (default 232448, sm_90's), so that a test can
+// steer a launcher's choice of route by shared-memory capacity.
 #pragma once
 #include <algorithm>
+#include <atomic>
 #include <barrier>
 #include <cstdint>
 #include <cstdlib>
@@ -55,7 +63,10 @@ typedef void* cudaStream_t;
 typedef int cudaError_t;
 enum { cudaErrorInvalidValue = 1 };
 enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
-enum { cudaDevAttrMultiProcessorCount = 16 };
+enum {
+  cudaDevAttrMultiProcessorCount = 16,
+  cudaDevAttrMaxSharedMemoryPerBlockOptin = 97
+};
 enum cudaLaunchAttributeID { cudaLaunchAttributeClusterDimension = 4 };
 struct cudaLaunchAttributeValue {
   struct { unsigned x, y, z; } clusterDim;
@@ -75,9 +86,10 @@ inline int cudaGetDevice(int* dev) {
   *dev = 0;
   return 0;
 }
-inline int cudaDeviceGetAttribute(int* v, int, int) {
-  const char* sms = std::getenv("CUDA_SHIM_SMS");
-  *v = sms ? std::atoi(sms) : 132;
+inline int cudaDeviceGetAttribute(int* v, int attr, int) {
+  const bool smem = attr == cudaDevAttrMaxSharedMemoryPerBlockOptin;
+  const char* env = std::getenv(smem ? "CUDA_SHIM_SMEM" : "CUDA_SHIM_SMS");
+  *v = env ? std::atoi(env) : (smem ? 232448 : 132);
   return 0;
 }
 template <class F> inline int cudaFuncSetAttribute(F, int, int) { return 0; }
@@ -92,18 +104,49 @@ struct BlockCtx {
   std::unique_ptr<std::barrier<>> bar;
   std::vector<std::unique_ptr<WarpCtx>> warps;
   std::vector<char> smem;
+  std::atomic<int> live{0};          // threads still running
+  std::atomic<int> arrivals{0};      // its threads' cluster barriers
+  std::atomic<bool> done{false};     // exited, shared memory poisoned
+  std::atomic<unsigned> events{0};   // wakes the CTAs waiting their turn
 };
 inline thread_local BlockCtx* tblock;
 inline thread_local char* shim_smem;
 struct ClusterCtx {
   std::unique_ptr<std::barrier<>> bar;
   std::vector<BlockCtx*> blocks;
+  int block, rank0;                  // threads a CTA, the first's blockIdx
 };
 inline thread_local ClusterCtx* tcluster;
+inline thread_local int tsyncs;      // cluster barriers this thread passed
+
+inline void shim_wake(BlockCtx* b) {
+  ++b->events;
+  b->events.notify_all();
+}
+
+// Between two cluster barriers the CTA of rank 0 runs first: the others
+// start only once it has reached the next barrier or exited, so that a
+// read of its shared memory after it exited (poisoned) fails every time,
+// not only when the threads race that way.
+inline void shim_cluster_turn() {
+  if ((int)blockIdx.x == tcluster->rank0) return;
+  BlockCtx* o = tcluster->blocks[0];
+  for (;;) {
+    const unsigned ev = o->events.load();
+    if (o->done || o->arrivals >= tcluster->block * (tsyncs + 1)) return;
+    o->events.wait(ev);
+  }
+}
 
 namespace cooperative_groups {
 struct cluster_group {
-  void sync() const { tcluster->bar->arrive_and_wait(); }
+  void sync() const {
+    ++tblock->arrivals;
+    shim_wake(tblock);
+    tcluster->bar->arrive_and_wait();
+    ++tsyncs;
+    shim_cluster_turn();
+  }
   template <class T> T* map_shared_rank(T* p, int rank) const {
     const std::ptrdiff_t off = (char*)p - tblock->smem.data();
     return (T*)(tcluster->blocks[rank]->smem.data() + off);
@@ -154,7 +197,24 @@ inline unsigned __ballot_sync(unsigned, int pred) {
   w->bar.arrive_and_wait();
   return m;
 }
+// redux.sync: the warp's maximum
+inline int __reduce_max_sync(unsigned, int v) {
+  WarpCtx* w = my_warp();
+  w->vals[threadIdx.x & 31] = v;
+  w->bar.arrive_and_wait();
+  int r = w->vals[0];
+  for (int i = 1; i < 32; ++i) r = max(r, w->vals[i]);
+  w->bar.arrive_and_wait();
+  return r;
+}
+
+// shared- or global-memory atomics: the old value
+inline int atomicAdd(int* p, int v) {
+  return std::atomic_ref<int>(*p).fetch_add(v);
+}
+
 inline int __clz(int x) { return x ? __builtin_clz((unsigned)x) : 32; }
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline int __ffs(int x) { return __builtin_ffs(x); }
 
 // cuda_pipeline.h's primitives: the copy is done at once, so commit and
@@ -184,6 +244,8 @@ template <class F> void run_cluster(int b0, int n, int block, size_t smem,
                                     F run) {
   ClusterCtx cc;
   cc.bar = std::make_unique<std::barrier<>>(n * block);
+  cc.block = block;
+  cc.rank0 = b0;
   std::vector<std::unique_ptr<BlockCtx>> ctxs;
   for (int i = 0; i < n; ++i) {
     auto ctx = std::make_unique<BlockCtx>();
@@ -191,6 +253,7 @@ template <class F> void run_cluster(int b0, int n, int block, size_t smem,
     for (int w = 0; w < (block + 31) / 32; ++w)
       ctx->warps.push_back(std::make_unique<WarpCtx>());
     ctx->smem.assign(smem + 16, (char)0xA5);
+    ctx->live = block;
     cc.blocks.push_back(ctx.get());
     ctxs.push_back(std::move(ctx));
   }
@@ -204,7 +267,18 @@ template <class F> void run_cluster(int b0, int n, int block, size_t smem,
         tblock = cc.blocks[i];
         shim_smem = tblock->smem.data();
         tcluster = &cc;
+        tsyncs = 0;
+        if (n > 1) shim_cluster_turn();
         run();
+        // an exited CTA of a cluster: its shared memory is gone, so a
+        // late read through map_shared_rank sees 0x5A bytes
+        if (n > 1) {
+          if (--tblock->live == 0) {
+            std::memset(tblock->smem.data(), 0x5A, tblock->smem.size());
+            tblock->done = true;
+          }
+          shim_wake(tblock);
+        }
       });
   for (auto& th : ths) th.join();
 }
@@ -217,6 +291,8 @@ void shim_launch(K kern, int grid, int block, size_t smem, cudaStream_t,
     run_cluster(b, 1, block, smem, [&] { kern(args...); });
 }
 
+inline int shim_cluster_size = 0;   // the last cudaLaunchKernelEx's
+
 template <class... P, class... A>
 int cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg, void (*kern)(P...),
                        A... args) {
@@ -224,6 +300,7 @@ int cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg, void (*kern)(P...),
   for (unsigned i = 0; i < cfg->numAttrs; ++i)
     if (cfg->attrs[i].id == cudaLaunchAttributeClusterDimension)
       cl = (int)cfg->attrs[i].val.clusterDim.x;
+  shim_cluster_size = cl;
   const int grid = (int)cfg->gridDim.x;
   if (cl < 1 || cl > 8 || grid % cl) return cudaErrorInvalidValue;
   for (int b = 0; b < grid; b += cl)

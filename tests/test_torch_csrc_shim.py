@@ -64,7 +64,11 @@ def lib(tmp_path_factory):
         pytest.skip("no C++ compiler on this host")
     out = tmp_path_factory.mktemp("csrc_shim")
     shutil.copy(Path(__file__).with_name("cuda_shim.h"), out)
-    cpps = []
+    probe = out / "shim_probe.cpp"
+    probe.write_text('#include "cuda_shim.h"\n'
+                     'extern "C" int shim_last_cluster() '
+                     '{ return shim_cluster_size; }\n')
+    cpps = [str(probe)]
     for name in SOURCES:
         cpp = out / f"{name}.cpp"
         cpp.write_text(_translate((K.CSRC / name).read_text()))
@@ -85,6 +89,7 @@ def lib(tmp_path_factory):
         fn.argtypes = [ctypes.c_int] * (4 if "row" in name else 5)
         fn.restype = ctypes.c_longlong
         fns[name] = fn
+    fns["shim_last_cluster"] = dll.shim_last_cluster
     return fns
 
 
@@ -397,15 +402,17 @@ def _seed_reads(k, w, hpc, n, L):
 
 def _seed_run(lib, batch, lens, k, w, hpc, min_p, max_p, threads,
               packed=False, scratch=False):
+    """One launch through the C entry point, with the global scratch the
+    entry point asks for (scratch: assert that it asks for one)."""
     B, L = batch.shape
     wide = not SD.packed_ok(k, L)
     ends = np.full((B, L), 0x55, np.int32)
     periods = None if packed else np.full((B, L), 0x55, np.int32)
     n = np.full(B, -7, np.int32)
     fb = np.full(B, 7, np.uint8)
-    scr = (np.zeros(B * lib["seed_hits_row_bytes"](L, int(hpc), w,
-                                                    int(wide)), np.uint8)
-           if scratch else None)
+    nbytes = lib["seed_hits_scratch_bytes"](B, L, int(hpc), w, int(wide))
+    assert (nbytes > 0) == scratch
+    scr = np.zeros(nbytes, np.uint8) if nbytes else None
     rc = lib["seed_hits"](_p(batch), _p(lens), B, L, k, w, int(hpc), min_p,
                           max_p, int(wide), SD.pos_bits(L), int(packed),
                           threads, _p(scr), _p(ends), _p(periods), _p(n),
@@ -414,10 +421,30 @@ def _seed_run(lib, batch, lens, k, w, hpc, min_p, max_p, threads,
     return ends, periods, n, fb.astype(bool)
 
 
+def _seed_cap(lib, monkeypatch, P, k, w, hpc, L):
+    """Sets CUDA_SHIM_SMEM to the shared-memory cap at which one CTA holds
+    the arrays of P lanes of an L-wide launch, and no more (16-lane
+    steps): a CTA's head (the least cap at which a 16-base read fits,
+    less that read's row) and P lanes' row."""
+    lo, hi = 0, 1 << 20
+    while lo < hi:
+        mid = (lo + hi) // 2
+        monkeypatch.setenv("CUDA_SHIM_SMEM", str(mid))
+        if lib["seed_hits_scratch_bytes"](1, 16, 0, 1, 0) == 0:
+            hi = mid
+        else:
+            lo = mid + 1
+    head = lo - lib["seed_hits_row_bytes"](16, 0, 1, 0)
+    wide = int(not SD.packed_ok(k, L))
+    monkeypatch.setenv("CUDA_SHIM_SMEM", str(
+        head + lib["seed_hits_row_bytes"](P, int(hpc), w, wide)))
+
+
 # (k, w, hpc, min_p, max_p, threads, global scratch): 32-bit seed words
 # at 128 and 256 threads, -H, w = 5 (with -H too), min_p near 0, k = 16
 # (64-bit words: the poly-T key equals the 32-bit sentinel), and both
-# word widths on the global-scratch route
+# word widths on the global-scratch route (a shared-memory cap too small
+# for a cluster of 8 to hold the row)
 @pytest.mark.parametrize("k,w,hpc,min_p,max_p,threads,scratch", [
     (8, 1, False, 30, 10000, 128, False), (8, 1, False, 30, 10000, 256,
                                            False),
@@ -430,10 +457,12 @@ def _seed_run(lib, batch, lens, k, w, hpc, min_p, max_p, threads,
                                          True)],
     ids=["k8_t128", "k8_t256", "hpc", "w5", "w5_hpc", "k5_minp2", "k16",
          "k16_w3_minp5", "global_hpc", "global_k16"])
-def test_seed_hits_source_matches_plain(lib, k, w, hpc, min_p, max_p,
-                                        threads, scratch):
+def test_seed_hits_source_matches_plain(lib, monkeypatch, k, w, hpc, min_p,
+                                        max_p, threads, scratch):
     """Every output of every row (fallback rows too) equals seed_plain's,
     at L = 1024, and the non-fallback rows equal the host oracle."""
+    if scratch:
+        _seed_cap(lib, monkeypatch, 64, k, w, hpc, 1024)
     reads = _seed_reads(k, w, hpc, 6, 1024)
     batch, lens = SD.pad_batch(reads, 1024)
     got = _seed_run(lib, batch, lens, k, w, hpc, min_p, max_p, threads,
@@ -451,9 +480,11 @@ def test_seed_hits_source_matches_plain(lib, k, w, hpc, min_p, max_p,
             np.testing.assert_array_equal(periods[i, :n[i]], wp)
 
 
-def test_seed_hits_source_packed_and_routes(lib):
+def test_seed_hits_source_packed_and_routes(lib, monkeypatch):
     """The packed output equals collect_hits_packed's plain result; the
-    scratch sizes follow the layout (shared memory up to the cap)."""
+    scratch sizes follow the layout (shared memory, one CTA's or a
+    cluster's, up to sm_90's cap)."""
+    monkeypatch.delenv("CUDA_SHIM_SMEM", raising=False)
     reads = _seed_reads(8, 1, False, 5, 700)
     batch, lens = SD.pad_batch(reads, 700)
     ph, _, n, fb = _seed_run(lib, batch, lens, 8, 1, False, 30, 10000, 128,
@@ -463,13 +494,17 @@ def test_seed_hits_source_packed_and_routes(lib):
                                   use_hpc=False, min_p=30, max_p=10000)
     np.testing.assert_array_equal(ph, want[0].numpy())
     np.testing.assert_array_equal(n, want[1].numpy())
-    # sort words for the next power of two, keys, stream and valid bytes,
-    # rounded up to 16
-    assert lib["seed_hits_row_bytes"](700, 0, 1, 0) == -(
-        -(1024 * 4 + 700 * 6) // 16) * 16
+    # two radix buffers of 32-bit words, keys, stream and valid bytes, for
+    # the lanes rounded up to 16; positions with hpc, window minima with
+    # w > 1, 64-bit words when wide
+    assert lib["seed_hits_row_bytes"](700, 0, 1, 0) == 704 * 14
+    assert lib["seed_hits_row_bytes"](700, 1, 5, 1) == 704 * 30
     assert lib["seed_hits_scratch_bytes"](3, 4400, 0, 1, 0) == 0
-    big = lib["seed_hits_row_bytes"](20000, 1, 5, 1)
-    assert lib["seed_hits_scratch_bytes"](3, 20000, 1, 5, 1) == 3 * big
+    # 20 kb with hpc, w > 1 and 64-bit words: a cluster holds it; 70 kb
+    # passes a cluster of 8 (59392 bases at 30 bytes a lane)
+    assert lib["seed_hits_scratch_bytes"](3, 20000, 1, 5, 1) == 0
+    big = lib["seed_hits_row_bytes"](70000, 1, 5, 1)
+    assert lib["seed_hits_scratch_bytes"](3, 70000, 1, 5, 1) == 3 * big
     # a packed launch of 64-bit words is refused before any write
     out = np.full((1, 16), 0x55, np.int32)
     assert lib["seed_hits"](_p(batch[:1, :16].copy()), _p(lens[:1]), 1, 16,
@@ -479,10 +514,67 @@ def test_seed_hits_source_packed_and_routes(lib):
     assert (out == 0x55).all()
 
 
+# each route's rows, by row length at a shared-memory cap that holds
+# SEED_P lanes a CTA: one CTA, a cluster of 2 and of 8, and past that the
+# global scratch
+SEED_P = 128
+SEED_ROUTES = {"cta": 120, "cluster2": 250, "cluster8": 1000, "global": 1100}
+SEED_CLUSTER = {"cta": 1, "cluster2": 2, "cluster8": 8, "global": 1}
+
+
+def _seed_route_reads(rng, L):
+    """A tandem read and random reads (one with Ns) of about L bases, a
+    poly-A and a poly-T row of L (their keys all collide; with hpc one
+    stream lane each), a 3 bp read and an empty one."""
+    unit = rng.integers(0, 4, 41)
+    tandem = np.tile(unit, L // 41 + 1)[:L]
+    tandem = np.where(rng.random(L) < 0.02, rng.integers(0, 4, L), tandem)
+    noisy = rng.integers(0, 4, L - 5)
+    with_n = np.where(rng.random(L - 9) < 0.03, 4,
+                      rng.integers(0, 4, L - 9))
+    return [r.astype(np.uint8) for r in (
+        tandem, noisy, with_n, np.zeros(L), np.full(L - 3, 3),
+        np.zeros(3), np.zeros(0))]
+
+
+@pytest.mark.parametrize("route", list(SEED_ROUTES))
+@pytest.mark.parametrize("k,w,hpc", [
+    (8, 1, False), (8, 1, True), (8, 5, False), (8, 5, True),
+    (16, 1, False), (16, 1, True), (16, 5, False), (16, 5, True)])
+def test_seed_hits_source_routes_match_plain(lib, monkeypatch, route, k, w,
+                                             hpc):
+    """Every output of every row equals seed_plain's (packed too where the
+    words pack), at min_p 0, 1 and 3, on the route the row length steers
+    to under a cap of SEED_P lanes a CTA; 64 threads a CTA (8 x 64 on a
+    cluster of 8)."""
+    L = SEED_ROUTES[route]
+    _seed_cap(lib, monkeypatch, SEED_P, k, w, hpc, L)
+    reads = _seed_route_reads(np.random.default_rng(k + w + L), L)
+    batch, lens = SD.pad_batch(reads, L)
+    tb, tl = torch.from_numpy(batch), torch.from_numpy(lens)
+    for min_p in (0, 1, 3):
+        got = _seed_run(lib, batch, lens, k, w, hpc, min_p, 10000, 64,
+                        scratch=route == "global")
+        assert lib["shim_last_cluster"]() == SEED_CLUSTER[route]
+        want = SD.seed_plain(tb, tl, k=k, use_hpc=hpc, min_p=min_p,
+                             max_p=10000, w=w)
+        for g, x in zip(got, want):
+            np.testing.assert_array_equal(g, x.numpy())
+        assert got[2][0] > 0         # the tandem read has hits
+        if SD.packed_ok(k, L):
+            ph = _seed_run(lib, batch, lens, k, w, hpc, min_p, 10000, 64,
+                           packed=True, scratch=route == "global")[0]
+            np.testing.assert_array_equal(
+                ph, SD.pack_hits(*want[:3], SD.pos_bits(L)).numpy())
+
+
 def _chain_batch(seed, rows):
+    """The fuzz corpus' hits, after a row of no hits; then a non-singleton
+    end group (gated) and a one-hit row."""
     rng = np.random.default_rng(seed)
-    hits = [collect_tandem_repeat_hits(_random_read(rng), 8, 1, False, 30,
-                                       10000) for _ in range(rows)]
+    hits = [(np.zeros(0, np.int64), np.zeros(0, np.int64))]
+    hits += [collect_tandem_repeat_hits(_random_read(rng), 8, 1, False, 30,
+                                        10000) for _ in range(rows)]
     hits.append((np.array([100, 200, 200, 300]), np.array([50, 50, 60, 50])))
     hits.append((np.array([500]), np.array([40])))
     L = max(len(e) for e, _ in hits)
@@ -494,11 +586,7 @@ def _chain_batch(seed, rows):
     return ends, periods, n
 
 
-# (window, seed): the fuzz corpus at full window (never incomplete), at
-# 512 and at 64 (incomplete cells flag their rows); a non-singleton end
-# group (gated) and a one-hit row in every batch
-@pytest.mark.parametrize("window,seed", [(None, 7), (512, 7), (64, 11)])
-def test_chain_dp_source_matches_plain(lib, window, seed):
+def _chain_check(lib, window, seed):
     ends, periods, n = _chain_batch(seed, 14)
     B, L = ends.shape
     W = window or L
@@ -518,3 +606,81 @@ def test_chain_dp_source_matches_plain(lib, window, seed):
         assert fb.sum() == 1
     else:               # some rows incomplete, some exact
         assert 0 < fb[:-2].sum() < B - 2
+
+
+# (window, seed): the fuzz corpus at full window (never incomplete), at
+# 512 and at 64 (incomplete cells flag their rows); rows of no hits and of
+# one, and a non-singleton end group (gated), in every batch; a warp a CTA
+# (the launch fills 132 SMs), its planes in shared memory
+@pytest.mark.parametrize("window,seed", [(None, 7), (512, 7), (64, 11)])
+def test_chain_dp_source_matches_plain(lib, window, seed):
+    _chain_check(lib, window, seed)
+
+
+# the other routes of the same batches: four warps (reads) a CTA sharing
+# its shared memory, and a partial last CTA (the launcher sees 4 SMs);
+# planes too wide for shared memory, scanned in global memory; at full
+# window (4 chunks a step), 64 (2) and 24 (1)
+@pytest.mark.parametrize("route", ["smem_4warps", "global"])
+@pytest.mark.parametrize("window,seed", [(None, 7), (64, 11), (24, 11)])
+def test_chain_dp_source_routes_match_plain(lib, monkeypatch, route, window,
+                                            seed):
+    if route == "global":
+        monkeypatch.setenv("CUDA_SHIM_SMEM", "1024")
+    else:
+        monkeypatch.setenv("CUDA_SHIM_SMS", "4")
+    _chain_check(lib, window, seed)
+
+
+# A cluster of 2 whose CTAs publish a word in shared memory, sync, and read
+# each other's: with a last cluster barrier every read sees the word; without
+# it the shim runs rank 0 to its exit before rank 1 starts, and rank 1 reads
+# the exited CTA's poisoned shared memory (what the card forbids), every time.
+SHIM_EXIT_SRC = r'''
+#include "cuda_shim.h"
+__global__ void swap_kernel(int* out, int last_sync) {
+  extern __shared__ int s[];
+  const int rank = blockIdx.x;
+  if (threadIdx.x == 0) s[0] = 100 + rank;
+  cooperative_groups::this_cluster().sync();
+  const int* other =
+      cooperative_groups::this_cluster().map_shared_rank(s, rank ^ 1);
+  if (threadIdx.x == 0) out[rank] = other[0];
+  if (last_sync) cooperative_groups::this_cluster().sync();
+}
+extern "C" int swap(int* out, int last_sync) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(2);
+  cfg.blockDim = dim3(64);
+  cfg.dynamicSmemBytes = 16;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 2;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, swap_kernel, out, last_sync);
+}
+'''
+
+
+@pytest.mark.parametrize("last_sync", [True, False])
+def test_shim_poisons_an_exited_cluster_cta(tmp_path, last_sync):
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.skip("no C++ compiler on this host")
+    shutil.copy(Path(__file__).with_name("cuda_shim.h"), tmp_path)
+    cpp = tmp_path / "swap.cpp"
+    cpp.write_text(_translate(SHIM_EXIT_SRC))
+    so = tmp_path / "libswap.so"
+    subprocess.run([cxx, "-std=c++20", "-O1", "-fPIC", "-shared", "-pthread",
+                    "-I", str(tmp_path), "-o", str(so), str(cpp)],
+                   check=True)
+    fn = ctypes.CDLL(str(so)).swap
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    out = np.zeros(2, np.int32)
+    for _ in range(20):
+        assert fn(out.ctypes.data, int(last_sync)) == 0
+        want = [101, 100] if last_sync else [101, 0x5A5A5A5A]
+        assert out.tolist() == want

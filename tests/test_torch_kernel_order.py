@@ -888,3 +888,357 @@ def test_wf_ext_schedule_matches_jax(monkeypatch):
         want = WF.ext_batch(q, qlen, t, tlen, scores)
         np.testing.assert_array_equal(
             got, np.stack([np.asarray(w) for w in want]))
+
+
+# ------------------------------------------------------ seed_hits ------
+
+RADIX_WARPS, = _csrc("seed_hits.cu", r"RADIX_WARPS = (\d+);")
+MAX_CLUSTER, = _csrc("seed_hits.cu", r"MAX_CLUSTER = (\d+);")
+
+
+def _warp_share(lo, hi, warp, nwk):
+    """warp_share of csrc/seed_hits.cu: a warp's contiguous share of
+    [lo, hi), in whole chunks of 32."""
+    n = max(hi - lo, 0)
+    per = -(-(-(-n // nwk)) // 32) * 32
+    return lo + min(warp * per, n), lo + min(warp * per + per, n)
+
+
+def seed_radix_model(key, valid, k, C, P, nw):
+    """Step 4 of csrc/seed_hits.cu on one read of len(key) stream lanes,
+    over C CTAs of P lanes (C = 1: P = the read) of nw warps: each pass's
+    warps walk their shares in chunks of 32, count a digit once a chunk
+    (match_any's leader), turn the (digit, CTA, warp) counts into offsets
+    and scatter each element after its chunk's peers of lower lanes.
+    Returns (the lanes in sorted order, each lane's rank or -1)."""
+    S = len(key)
+    nwk = min(nw, RADIX_WARPS)
+    elems = None                       # the previous pass's output
+    n = int(valid.sum())
+    for pas in range((2 * k + 7) // 8):
+        shift = 8 * pas
+        walks = []                     # [c][w]: chunks of element lanes
+        for c in range(C):
+            lo, hi = c * P, min(c * P + P, S)
+            in_hi = min(hi, n) if pas else hi
+            walks.append([])
+            for w in range(nwk):
+                s0, s1 = _warp_share(lo, in_hi, w, nwk)
+                chunks = []
+                for c0 in range(s0, s1, 32):
+                    idx = range(c0, min(c0 + 32, s1))
+                    chunks.append([elems[i] if pas else
+                                   (i if valid[i] else None) for i in idx])
+                walks[c].append(chunks)
+        digit = {}
+
+        def dig(lane):
+            return (int(key[lane]) >> shift) & 255
+
+        cnt = np.zeros((256, C, nwk), np.int64)
+        for c in range(C):
+            for w in range(nwk):
+                for ch in walks[c][w]:
+                    for lane in ch:
+                        if lane is not None:
+                            cnt[dig(lane), c, w] += 1
+        off = (np.cumsum(cnt.ravel()) - cnt.ravel()).reshape(cnt.shape)
+        out = [None] * n
+        for c in range(C):
+            for w in range(nwk):
+                for ch in walks[c][w]:
+                    ds = [None if x is None else dig(x) for x in ch]
+                    for j, lane in enumerate(ch):
+                        if lane is None:
+                            continue
+                        r = off[ds[j], c, w] + ds[:j].count(ds[j])
+                        assert out[r] is None      # each slot once
+                        out[r] = lane
+                    for d in set(x for x in ds if x is not None):
+                        off[d, c, w] += ds.count(d)
+        elems = out
+        del digit
+    rank = np.full(S, -1, np.int64)
+    for r, lane in enumerate(elems or []):
+        rank[lane] = r
+    return np.array(elems or [], np.int64), rank
+
+
+def seed_search_model(skey, spos, rank, key, pos, valid, min_p):
+    """Step 5 of csrc/seed_hits.cu: per valid lane with p >= min_p, the
+    last sorted word <= (key, p - min_p) in [r - min_p, r] by a binary
+    search; returns the found sorted index of each lane or -1."""
+    found = np.full(len(key), -1, np.int64)
+    for s in np.nonzero(valid)[0]:
+        p = int(pos[s])
+        if p < min_p:
+            continue
+        r = int(rank[s])
+        tgt = (int(skey[r]), p - min_p)
+        j0 = r - min(r, min_p)
+        x, y = j0, r + 1
+        while x < y:
+            mid = (x + y) // 2
+            if (int(skey[mid]), int(spos[mid])) <= tgt:
+                x = mid + 1
+            else:
+                y = mid
+        if x > j0:
+            found[s] = x - 1
+    return found
+
+
+def _seed_lanes(seed, S, alphabet, gaps):
+    """S stream lanes: keys from `alphabet` distinct values (collisions
+    by the hundred at 3), ~80% valid, positions ascending (gaps: hpc-like
+    jumps, else the lane itself)."""
+    rng = np.random.default_rng(seed)
+    vals = rng.integers(0, 1 << 16, alphabet)
+    key = vals[rng.integers(0, alphabet, S)]
+    valid = rng.random(S) < 0.8
+    pos = (np.cumsum(rng.integers(1, 4, S)) if gaps else np.arange(S))
+    return key, valid, pos
+
+
+# (k, CTAs, lanes a CTA, warps): one pass (k = 4), two (k = 8) and four
+# (k = 16); one CTA with fewer warps than RADIX_WARPS, as many and more;
+# clusters of 2 and of MAX_CLUSTER with a short last part
+@pytest.mark.parametrize("k,C,P,nw", [
+    (4, 1, 700, 2), (8, 1, 700, 8), (8, 1, 1000, 16), (16, 1, 700, 4),
+    (8, 2, 352, 4), (8, MAX_CLUSTER, 96, 2), (16, 3, 240, 8)])
+def test_seed_radix_passes_are_a_stable_sort(k, C, P, nw):
+    S = min(C * P, 700 + 300 * (P == 1000)) - 7
+    for alphabet in (3, 200):
+        key, valid, _ = _seed_lanes(k + C + alphabet, S, alphabet, False)
+        key = key & ((1 << (2 * k)) - 1)
+        order, rank = seed_radix_model(key, valid, k, C, P, nw)
+        lanes = np.nonzero(valid)[0]
+        want = lanes[np.lexsort((lanes, key[lanes]))]
+        np.testing.assert_array_equal(order, want)
+        np.testing.assert_array_equal(rank[order], np.arange(len(order)))
+        assert (rank[~valid] == -1).all()
+
+
+@pytest.mark.parametrize("gaps", [False, True], ids=["lanes", "hpc"])
+def test_seed_rank_search_matches_row_search(gaps):
+    """The search from a lane's rank in [r - min_p, r] finds the word the
+    row-wide search for the last word <= (key, p - min_p) finds (seed_plain's
+    searchsorted), for min_p 0 to 5."""
+    for seed, alphabet in ((1, 3), (2, 40)):
+        key, valid, pos = _seed_lanes(seed, 600, alphabet, gaps)
+        order, rank = seed_radix_model(key, valid, 8, 1, 600, 8)
+        skey, spos = key[order], pos[order]
+        words = (skey.astype(np.int64) << 31) | spos
+        for min_p in range(6):
+            got = seed_search_model(skey, spos, rank, key, pos, valid, min_p)
+            q = valid & (pos >= min_p)
+            tgt = (key.astype(np.int64) << 31) | (pos - min_p)
+            cnt = np.searchsorted(words, tgt, side="right")
+            want = np.where(q & (cnt > 0), cnt - 1, -1)
+            np.testing.assert_array_equal(got, want)
+            if min_p == 0:
+                np.testing.assert_array_equal(got[valid], rank[valid])
+
+
+def test_seed_schedule_matches_plain():
+    """The radix and search models over a batch's own keys (seed_plain's
+    front half) give seed_plain's hits, read by read."""
+    from test_offload import _random_reads
+    from tidehunter_tpu_torch.ops import seeding_device as SD
+
+    reads = _random_reads(np.random.default_rng(3), 6, 900, n_frac=0.0)
+    reads.append(np.zeros(300, np.uint8))
+    batch, lens = SD.pad_batch(reads, 900)
+    tb, tl = torch.from_numpy(batch), torch.from_numpy(lens)
+    for hpc in (False, True):
+        key, pos, valid, _ = SD._keys_valid_positions(tb, tl, k=8,
+                                                      use_hpc=hpc, w=1)
+        ends, pers, n, _ = SD.seed_plain(tb, tl, k=8, use_hpc=hpc, min_p=3,
+                                         max_p=500)
+        for b in range(len(reads)):
+            kb, pb_, vb = (x[b].numpy() for x in (key, pos, valid))
+            order, rank = seed_radix_model(kb, vb, 8, 2, 464, 4)
+            if not len(order):             # no seed (poly-A under -H)
+                assert n[b] == 0
+                continue
+            found = seed_search_model(kb[order], pb_[order], rank, kb, pb_,
+                                      vb, 3)
+            hit = found >= 0
+            hit[hit] &= kb[order][found[hit]] == kb[hit]
+            per = pb_ - np.where(hit, pb_[order][np.maximum(found, 0)], 0)
+            hit &= per <= 500
+            m = int(n[b])
+            np.testing.assert_array_equal(pb_[hit], ends[b, :m].numpy())
+            np.testing.assert_array_equal(per[hit], pers[b, :m].numpy())
+
+
+# ------------------------------------------------------- chain_dp ------
+
+CHAIN_NEG = -(1 << 30)
+
+
+def _chain_terms(E, P, cell, cur, hi, window, k):
+    """terms of csrc/chain_dp.cu for the chunk of lanes p = hi - l: the
+    S-free terms, and each lane's score S[p] (hit 0's where p < 0)."""
+    ce, cp = cell
+    cs = ce - cp
+    p = hi - np.arange(32)
+    q = {"in_win": cur - p <= window, "p": np.maximum(p, 0)}
+    pe, pp = E[q["p"]], P[q["p"]]
+    ps = pe - pp
+    q["valid"] = q["in_win"] & (p >= 0) & (pe >= cs)
+    q["conn"] = (q["valid"] & (cs > ps) & (5 * cp < 9 * pp)
+                 & (5 * pp < 9 * cp))
+    dis1, dis2 = ce - pe, cs - ps
+    matched = np.minimum(dis1, k) + np.minimum(dis2, k)
+    dlt = np.abs(cp - pp)
+    lg = np.array([int(max(x, 1)).bit_length() - 1 for x in dis1 + dis2])
+    q["add"] = matched - ((dlt * dlt >> 1) + (lg >> 1))
+    q["stop0"] = q["conn"] & (dlt == 0)
+    q["stopm"] = q["stop0"] & (matched < 2 * k)
+    return q
+
+
+def _chain_resolve(q, sc, hi, cp, st, full):
+    """resolve of csrc/chain_dp.cu: the event ballot; updates st.  Unless
+    `full`, a chunk whose lanes' run cannot reach cp takes the reduction
+    path: the first S-free event, the SAME lanes before it tested by their
+    prefix maxima, the greatest sc up to the event."""
+    lanes = np.arange(32)
+    if not full and st["iter"] + 32 < cp:
+        st["redux"] += 1
+        ev0 = q["in_win"] & (~q["valid"] | q["stopm"])
+        e0 = int(np.argmax(ev0)) if ev0.any() else 32
+        upto = lanes <= e0
+        ev = ev0.copy()
+        for j in np.nonzero(q["in_win"] & q["stop0"] & ~q["stopm"]
+                            & (lanes < e0))[0]:
+            st["same"] += 1
+            pm = sc[:j].max() if j else CHAIN_NEG
+            if sc[j] > max(pm, st["run_max"]):
+                upto, ev = lanes <= j, lanes == j
+                break
+        m = int(np.where(upto, sc, CHAIN_NEG).max())
+        if m > st["run_max"]:
+            wl = int(np.argmax(upto & (sc == m)))
+            st.update(best=m, run_max=m, best_p=hi - wl, iter=31 - wl)
+        else:
+            st["skipped"] += 1
+            st["iter"] += 32
+        return ev
+    st["prefix"] += 1
+    before = np.maximum(np.concatenate(
+        [[CHAIN_NEG], np.maximum.accumulate(sc)[:-1]]), st["run_max"])
+    imp = q["conn"] & (sc > before)
+    last = np.maximum.accumulate(np.where(imp, lanes, -1))
+    run = np.where(last >= 0, lanes - last, st["iter"] + lanes + 1)
+    stop = q["stopm"] | (q["stop0"] & imp)
+    ev = q["in_win"] & (~q["valid"] | stop | (run >= cp))
+    e = int(np.argmax(ev)) if ev.any() else 32
+    take = lanes < e
+    if e < 32 and stop[e] and imp[e]:
+        take[e] = True
+    cand = imp & take
+    if cand.any():
+        wl = int(np.nonzero(cand)[0].max())
+        st.update(best=int(sc[wl]), best_p=hi - wl, run_max=int(sc[wl]))
+    st["iter"] = (31 - int(np.nonzero(imp)[0].max()) if imp.any()
+                  else st["iter"] + 32)
+    return ev
+
+
+CHAIN_COUNTS = ("redux", "skipped", "same", "prefix")
+
+
+def chain_dp_model(ends, periods, n_hits, k, window, full=False):
+    """csrc/chain_dp.cu's schedule: each cell's first chunk (its terms and
+    the scores of lanes p <= cur - 2) loaded during the cell before, lane 0
+    (p = cur - 1) taking that cell's result; later chunks loaded one
+    ahead; each chunk resolved by the reduction path where no run can
+    reach the period (with `full`: never).  Returns (score, from,
+    fallback, path counts)."""
+    B, L = ends.shape
+    score = np.zeros((B, L), np.int64)
+    frm = np.full((B, L), -1, np.int64)
+    fb = np.zeros(B, bool)
+    counts = dict.fromkeys(CHAIN_COUNTS, 0)
+    lanes = np.arange(32)
+    for b in range(B):
+        n = int(n_hits[b])
+        E, P = ends[b, :n].astype(np.int64), periods[b, :n].astype(np.int64)
+        if n and ((P >= 1 << 15).any() or (E >= 1 << 30).any()
+                  or (E[1:] == E[:-1]).any()):
+            fb[b] = True
+            continue
+        S = k + np.minimum(k, P)
+        if n >= 2:
+            s_prev = int(S[0])
+            f = _chain_terms(E, P, (E[1], P[1]), 1, 0, window, k)
+            fs = S[f["p"]]
+        for cur in range(1, n):
+            ce, cp = int(E[cur]), int(P[cur])
+            base = k + min(k, cp)
+            nx = min(cur + 1, n - 1)
+            fn = _chain_terms(E, P, (E[nx], P[nx]), nx, nx - 1, window, k)
+            fns = S[fn["p"]].copy()         # lane 0's is not final yet
+            st = dict(run_max=base, best=base, best_p=-1, iter=0,
+                      **dict.fromkeys(CHAIN_COUNTS, 0))
+            own = np.where(lanes > 0, fs, s_prev)
+            ev = _chain_resolve(f, np.where(f["conn"], own + f["add"],
+                                            CHAIN_NEG), cur - 1, cp, st, full)
+            edge = cur - 32 <= cur - window
+            hi = cur - 33
+            while not ev.any() and not edge:
+                t = _chain_terms(E, P, (ce, cp), cur, hi, window, k)
+                ev = _chain_resolve(t, np.where(t["conn"], S[t["p"]]
+                                                + t["add"], CHAIN_NEG),
+                                    hi, cp, st, full)
+                edge = hi - 31 <= cur - window
+                hi -= 32
+            fb[b] |= not ev.any()
+            for key in CHAIN_COUNTS:
+                counts[key] += st[key]
+            if st["best_p"] >= 0:
+                S[cur], frm[b, cur] = st["best"], st["best_p"]
+            s_prev, f, fs = st["best"], fn, fns
+        score[b, :n] = S
+    return score, frm, fb, counts
+
+
+@pytest.mark.parametrize("window", [None, 64, 24], ids=["full", "w64",
+                                                         "w24"])
+def test_chain_skip_leaves_outputs_unchanged(window):
+    """On the fuzz rows of test_torch_chaining_device, the reduction path
+    (its skip where the chunk maximum is at most the running maximum, its
+    SAME tests) leaves score, from and fallback as
+    the full resolution gives them, and both equal chain_dp_plain and the
+    JAX function."""
+    from test_chaining_jax import _batch
+    from test_torch_chaining_device import _corpus
+
+    from tidehunter_tpu.ops.chaining_jax import chain_dp_batch
+    from tidehunter_tpu_torch.ops import chaining_device as CD
+
+    hit_list = _corpus(7, 14)
+    ends, pers, cnt = _batch(hit_list)
+    W = window or ends.shape[1]
+    got = chain_dp_model(ends, pers, cnt, 8, W)
+    full = chain_dp_model(ends, pers, cnt, 8, W, full=True)
+    assert min(got[3][key] for key in ("redux", "skipped", "same")) > 0
+    # a first chunk takes the prefix path only at a period <= 32 (none in
+    # this corpus), a later one where iter nears the period
+    if W > 32:
+        assert got[3]["prefix"] > 0
+    assert full[3]["redux"] == 0 and full[3]["prefix"] > got[3]["prefix"]
+    want = CD.chain_dp_plain(*map(torch.from_numpy, (ends, pers, cnt)), k=8,
+                             window=W)
+    js = chain_dp_batch(ends, pers, cnt, k=8, window=W)
+    for g, f, x, j in zip(got[:3], full[:3], want, js):
+        np.testing.assert_array_equal(g, f)
+        np.testing.assert_array_equal(g, x.numpy())
+    served = ~got[2]
+    np.testing.assert_array_equal(got[2], np.asarray(js[2]))
+    for i in np.nonzero(served)[0]:
+        m = int(cnt[i])
+        np.testing.assert_array_equal(got[0][i, :m], np.asarray(js[0])[i, :m])
+        np.testing.assert_array_equal(got[1][i, :m], np.asarray(js[1])[i, :m])

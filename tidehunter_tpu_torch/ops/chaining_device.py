@@ -19,8 +19,9 @@ base score, from -1); past n_hits, and on gated reads, score is 0 and
 from -1.
 
 On a CUDA tensor this is one launch of the hand-written kernel
-``csrc/chain_dp.cu: chain_dp`` (a warp a read, predecessors scanned 32 a
-step until the first event); on a CPU tensor ``chain_dp_plain`` runs the
+``csrc/chain_dp.cu: chain_dp`` (a warp a read, its planes in shared
+memory where they fit, predecessors scanned 32 a step until the first
+event); on a CPU tensor ``chain_dp_plain`` runs the
 JAX module's dataflow as torch ops: a Python step per cell, every window
 lane of every read evaluated.
 """
@@ -57,10 +58,12 @@ def chain_dp_batch(ends: torch.Tensor, periods: torch.Tensor,
     from_idx = torch.empty_like(score)
     fb = torch.empty(B, dtype=torch.bool, device=ends.device)
     if B and L:
-        K.CHAIN_DP(ends.int().contiguous().data_ptr(),
-                   periods.int().contiguous().data_ptr(),
-                   n_hits.int().contiguous().data_ptr(), B, L, k, window,
-                   score.data_ptr(), from_idx.data_ptr(), fb.data_ptr())
+        with torch.cuda.device(ends.device):    # the card of the data
+            K.CHAIN_DP(ends.int().contiguous().data_ptr(),
+                       periods.int().contiguous().data_ptr(),
+                       n_hits.int().contiguous().data_ptr(), B, L, k,
+                       window, score.data_ptr(), from_idx.data_ptr(),
+                       fb.data_ptr())
     else:
         fb.zero_()
     return score, from_idx, fb

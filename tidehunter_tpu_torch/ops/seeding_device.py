@@ -18,8 +18,9 @@ flagged row's hits are unconstrained; the caller reroutes it through the
 exact host seeder.
 
 On a CUDA tensor each seeder is one launch of the hand-written kernel
-``csrc/seed_hits.cu: seed_hits`` (a CTA a read, its arrays in shared
-memory or, for a read too long for that, a global scratch); on a CPU
+``csrc/seed_hits.cu: seed_hits`` (a stable radix sort by key and a search
+from each lane's rank; a read's arrays in one CTA's shared memory, a
+thread-block cluster's, or past both a global scratch); on a CPU
 tensor it runs ``seed_plain``, the same function as torch ops: the front
 half of the JAX module (``_hpc_compact``, ``_keys_valid_positions``),
 then a sort of 64-bit (key, position) words and a ``searchsorted`` for the
@@ -55,9 +56,11 @@ def packed_ok(k: int, L: int) -> bool:
 
 
 def threads_for(L: int) -> int:
-    """seed_hits' threads a CTA: a thread per 16 sort words, 128-1024."""
+    """seed_hits' threads a CTA: a thread per 32 lanes of the next power
+    of two, 128-1024 (256 at the slice's ~4.4 kb reads: three CTAs of
+    ~71 KB of shared memory an SM)."""
     n = 1 << max(0, int(L - 1).bit_length())
-    return min(1024, max(128, n // 16))
+    return min(1024, max(128, n // 32))
 
 
 def _check(bseq: torch.Tensor, length: torch.Tensor, k: int, w: int):
@@ -83,19 +86,24 @@ def _launch(bseq, length, k, use_hpc, min_p, max_p, w, packed):
     n_hits = torch.empty(B, dtype=torch.int32, device=dev)
     fb = torch.empty(B, dtype=torch.bool, device=dev)
     if B and L:
-        nbytes = K.host_call("seed_hits_scratch_bytes",
-                             [ctypes.c_int] * 5, ctypes.c_longlong,
-                             B, L, int(use_hpc), w, int(wide))
-        scratch = (torch.empty(nbytes, dtype=torch.uint8, device=dev)
-                   if nbytes else None)
-        K.SEED_HITS(bseq.contiguous().data_ptr(),
-                    length.int().contiguous().data_ptr(), B, L, k, w,
-                    int(use_hpc), min_p, max_p, int(wide), pos_bits(L),
-                    int(packed), threads_for(L),
-                    None if scratch is None else scratch.data_ptr(),
-                    ends.data_ptr(),
-                    None if periods is None else periods.data_ptr(),
-                    n_hits.data_ptr(), fb.data_ptr())
+        # the route is chosen for, and the launch made on, the data's card
+        with torch.cuda.device(dev):
+            nbytes = K.host_call("seed_hits_scratch_bytes",
+                                 [ctypes.c_int] * 5, ctypes.c_longlong,
+                                 B, L, int(use_hpc), w, int(wide))
+            if nbytes < 0:
+                raise RuntimeError("seed_hits_scratch_bytes: the card's "
+                                   "shared memory could not be queried")
+            scratch = (torch.empty(nbytes, dtype=torch.uint8, device=dev)
+                       if nbytes else None)
+            K.SEED_HITS(bseq.contiguous().data_ptr(),
+                        length.int().contiguous().data_ptr(), B, L, k, w,
+                        int(use_hpc), min_p, max_p, int(wide), pos_bits(L),
+                        int(packed), threads_for(L),
+                        None if scratch is None else scratch.data_ptr(),
+                        ends.data_ptr(),
+                        None if periods is None else periods.data_ptr(),
+                        n_hits.data_ptr(), fb.data_ptr())
     else:
         n_hits.zero_()
         fb.fill_(w > 1)
