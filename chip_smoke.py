@@ -18,9 +18,12 @@ Phases, each printing its result on its own line:
      also against its first version, equal and timed in the same run;
      myers_hw (the adapter search) against hw_batch_plain at the adapter
      path's shapes (4096 searches of the 84 and 25 bp adapters in ~1.1 kb
-     doubled consensus) and the single-copy path's (2048 searches of 32,
-     64, 65 and 128 bp queries in ~5 kb reads), its bound counting
-     ceil(qlen / 64) words a search;
+     doubled consensus), the single-copy path's (2048 searches of 32, 64,
+     65 and 128 bp queries in ~5 kb reads) and few long targets (64
+     searches of the same queries in ~12 kb reads), each with the lanes a
+     problem its launch took, its bound counting ceil(qlen / 64) words a
+     search over every target column and min(end + 1, m + ed) SHW
+     columns;
   3. the wavefront dtype probe: wf_dtype_probe against probe_plain, exact,
      in all four variants at (T=512, BT=128) and (T=200, BT=7), then the
      probe's own timing table at its defaults;
@@ -49,9 +52,11 @@ Phases, each printing its result on its own line:
      hws_host, the problems of each myers_hw launch, and the records of
      its first 8 reads byte-identical with tidehunter_core (over a pool
      of host processes); the --msa graph run writes a --profile trace,
-     which must parse and hold the card's kernels; then myers_hw against
-     hw_batch_plain on the inputs of the -5/-3 -f 2 run's largest launch
-     (its main path: the numbers the summary line keeps);
+     which must parse and hold the card's kernels; then the -5/-3 -f 2 run
+     once more, untimed, under torch.profiler (myers_hw's device ms and
+     the run's device busy share); then myers_hw against hw_batch_plain on
+     the inputs of the -5/-3 -f 2 run's largest launch (its main path: the
+     numbers the summary line keeps);
   7. the full-width rung: regions that skip or escalate past the band
      window must equal the host mirror banded_profile_consensus;
   8. device seeding and chaining (TH_DEVICE_SEED, TH_DEVICE_CHAIN):
@@ -163,7 +168,8 @@ TRACE_NAMES = {"wf_global_kernel": "wf_global", "wf_ext_kernel": "wf_ext",
                "profile_dp_warp": "profile_dp_warp",
                "profile_dp_strip": "profile_dp_strip",
                "profile_dp_kernel": "profile_dp_first",
-               "profile_bt_warp": "profile_bt"}
+               "profile_bt_warp": "profile_bt",
+               "myers_hw_kernel": "myers_hw"}
 # phase 5: (name, reads, unit length, copies) of each population
 PERIOD_POPULATIONS = (("short", 512, 60, 60), ("amplicon", 256, 1500, 6),
                       ("cdna", 128, 3000, 4))
@@ -175,6 +181,7 @@ FIVE = ("AATGATACGGCGACCACCGAGATCTACACTCGACTAGTCGTCGGCAGCGTCAGATGTGTATAA"
 THREE = "AAGCAGTGGTATCAACGCAGAGTAC"
 ADAPTER_READS = 1024         # phase 6's adapter population
 SC_QLENS = (32, 64, 65, 128)  # single-copy search shapes of phase 2
+LONG_READS, LONG_GAP = 16, 2300  # phase 2's long row: 16 reads of ~12 kb
 OPTION_ORACLE_READS = 8      # reads of each option run held to the oracle
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
@@ -189,11 +196,21 @@ INT32_PER_CLK_PER_SM = 128
 OPS_PER_CELL = {"wf_global iden_only": 51, "wf_global tleft": 70,
                 "wf_ext": 49, "profile_dp banded": 88,
                 "profile_dp full": 76, "profile_bt": 73}
-# myers_hw: int32 operations a target column and 64-bit query word (a
-# 64-bit operation counts two), and a column, counted in
-# csrc/myers_hw.cu's myers_step and its loop; both passes
-MYERS_OPS_PER_COL_WORD = 55
-MYERS_OPS_PER_COL = 20
+# myers_hw: int32 operations a target column and 64-bit query word, and a
+# column, that the search needs, one yardstick for both versions (a 64-bit
+# operator counts two).  A word: Hyyro's step, xv = eq | mv (1), xh =
+# (((eq & pv) + pv) ^ pv) | eq (4), ph = mv | ~(xh | pv) (3), mh = pv & xh
+# (1), ph <<= 1, mh <<= 1 (2), pv = mh | ~(xv | ph) (3), mv = ph & xv (1):
+# 15 operators.  Picking eq by the target's code is an indexed load; the
+# carry of the add and the bit the shifts move across words ride in an
+# add-with-carry and a funnel shift; no mask is needed, since no bit flows
+# down to bit m - 1.  A column: bit m - 1 of ph and mh (2), the score (2),
+# the leftmost least (3), the column's index and loop test (2) and the
+# target byte's address (1).  Both passes, over the columns the semantics
+# need: every target column of the HW pass, min(end + 1, m + ed) of the
+# SHW pass
+MYERS_OPS_PER_COL_WORD = 30
+MYERS_OPS_PER_COL = 10
 # seed_hits: int32 ops a stream lane and key base, a lane, a sort compare
 # and a binary-search step (32- / 64-bit words), and a lane and window
 # offset of each w > 1 pass (csrc/seed_hits.cu's header)
@@ -500,9 +517,11 @@ def revcomp(s: str) -> str:
 def myers_cases(rng):
     """(label, [(query, target, k)]): the adapter path's searches (the
     four adapter orientations in 1024 doubled consensus of an 84 + 450 +
-    25 bp unit, k = 20% of the adapter) and the single-copy path's (4
+    25 bp unit, k = 20% of the adapter), the single-copy path's (4
     queries of SC_QLENS bp in 512 reads of ~5 kb, each holding a noisy
-    copy of every query)."""
+    copy of every query) and few long targets (the same 4 queries in
+    LONG_READS reads of ~12 kb: LONG_GAP random bases between the copies,
+    where a thread a problem leaves the card emptiest)."""
     from tidehunter_tpu_torch.io.codec import decode
     from tidehunter_tpu_torch.ops.myers_device import encode5
 
@@ -524,9 +543,19 @@ def myers_cases(rng):
                      rng.integers(0, 4, 1000).astype(np.uint8)]
         reads.append(decode(np.concatenate(read)))
     sc = [(decode(q), t, int(len(q) * 0.2)) for t in reads for q in queries]
+    longs = []
+    for _ in range(LONG_READS):
+        read = [rng.integers(0, 4, LONG_GAP).astype(np.uint8)]
+        for q in queries:
+            read += [_mutate(rng, q, 0.1),
+                     rng.integers(0, 4, LONG_GAP).astype(np.uint8)]
+        longs.append(decode(np.concatenate(read)))
+    lc = [(decode(q), t, int(len(q) * 0.2)) for t in longs for q in queries]
+    qs = "/".join(map(str, SC_QLENS))
     return [("adapters in doubled consensus B=4096", main),
-            (f"single-copy qlen {'/'.join(map(str, SC_QLENS))} in ~5 kb "
-             f"reads B=2048", sc)]
+            (f"single-copy qlen {qs} in ~5 kb reads B=2048", sc),
+            (f"long targets qlen {qs} in ~12 kb reads B="
+             f"{LONG_READS * len(SC_QLENS)}", lc)]
 
 
 def check_myers(checks, dev, rng):
@@ -541,16 +570,28 @@ def check_myers(checks, dev, rng):
 
 
 def myers_check(checks, label, seq, meta, qmax):
-    """myers_hw against hw_batch_plain on the card, exact.  The bound
-    counts the work this run's data needs: for each search, ceil(qlen /
-    64) words over every target column (HW pass) and end + 1 columns
-    (SHW pass) when it is within k."""
+    """myers_hw against hw_batch_plain on the card, exact, with the lanes a
+    problem of its launch (myers_hw_lanes; not printed for a tree without
+    it).  The bound counts the work this run's data needs: for each
+    search, ceil(qlen / 64) words over every target column (HW pass) and,
+    when it is within k, min(end + 1, m + ed) columns (SHW pass: no later
+    column can score ed), for the first version as for this one."""
+    from tidehunter_tpu_torch import _kernels as K
     from tidehunter_tpu_torch.ops import myers_device as MY
+
+    B = meta.shape[1]
+    if hasattr(K.load(), "myers_hw_lanes"):
+        with torch.cuda.device(seq.device):
+            P = K.host_call("myers_hw_lanes", [ctypes.c_int], ctypes.c_int,
+                            B)
+        print(f"myers_hw {label}: {P} lanes a problem, B={B}, targets "
+              f"{int(meta[3].min())}-{int(meta[3].max())} bp", flush=True)
 
     def work():
         ed, _, end = MY.myers_hw(seq, meta, qmax).double()
         words = torch.ceil(meta[1].double() / 64)
-        cols = meta[3].double() + torch.where(ed >= 0, end + 1, 0)
+        shw = torch.minimum(end + 1, meta[1].double() + ed)
+        cols = meta[3].double() + torch.where(ed >= 0, shw, 0)
         ops = float((cols * (MYERS_OPS_PER_COL_WORD * words
                              + MYERS_OPS_PER_COL)).sum())
         return ops, _nbytes(seq, meta) + 3 * 4 * meta.shape[1]
@@ -1014,20 +1055,11 @@ def check_trace(path, label):
                              f"no kernel event")
 
 
-def phase_options(tmp, dev):
-    """Each OPTION_RUNS run through the port's CLI on the card: reads/s,
-    stage timers (--metrics), launches and hws_host; the adapter runs
-    must launch myers_hw, --polish 1 the profile kernels, --msa graph no
-    profile DP (its MSA is the host graph-POA), and its --profile trace
-    must hold the card's kernels; the records of the first
-    OPTION_ORACLE_READS reads of each run must equal tidehunter_core's.
-    Returns myers_hw's launches in the first run (its main path) and the
-    inputs of that run's largest launch."""
-    from tidehunter_tpu_torch import _kernels as K
-    from tidehunter_tpu_torch import cli
+def option_inputs(tmp):
+    """Phase 6's inputs written under tmp: (each population's reads, its
+    FASTA path, the -5/-3 arguments naming the adapter files)."""
     from tidehunter_tpu_torch.evals.synth import synth_read
     from tidehunter_tpu_torch.io.fastx import FastxRecord
-    from tidehunter_tpu_torch.pipeline.runner import load_adapters
 
     rng = np.random.default_rng(42)
     pops = {"adapters": adapter_reads(np.random.default_rng(44),
@@ -1045,6 +1077,41 @@ def phase_options(tmp, dev):
         ada += ["-5" if name == "5p" else "-3", os.path.join(tmp, name)]
         with open(ada[-1], "w") as f:
             f.write(f">{name}\n{seq}\n")
+    return pops, files, ada
+
+
+def myers_main_launch(dev):
+    """The inputs of the largest myers_hw launch of phase 6's first run
+    (-5 -3 -f 2, its main path), from one untimed run through the CLI:
+    --kernels myers_hw times that launch on each tree."""
+    from tidehunter_tpu_torch import cli
+
+    label, key, args = OPTION_RUNS[0]
+    with tempfile.TemporaryDirectory() as tmp:
+        _, files, ada = option_inputs(tmp)
+        with MyersLaunches() as rec:
+            rc = cli.main([*ada, *args, "--device", dev.type, "-o",
+                           os.path.join(tmp, "main.out"), files[key]])
+    if rc != 0:
+        raise AssertionError(f"options {label}: exit {rc}")
+    return rec.largest
+
+
+def phase_options(tmp, dev):
+    """Each OPTION_RUNS run through the port's CLI on the card: reads/s,
+    stage timers (--metrics), launches and hws_host; the adapter runs
+    must launch myers_hw, --polish 1 the profile kernels, --msa graph no
+    profile DP (its MSA is the host graph-POA), and its --profile trace
+    must hold the card's kernels; the first run once more under
+    torch.profiler (trace_run), untimed; the records of the first
+    OPTION_ORACLE_READS reads of each run must equal tidehunter_core's.
+    Returns myers_hw's launches in the first run (its main path) and the
+    inputs of that run's largest launch."""
+    from tidehunter_tpu_torch import _kernels as K
+    from tidehunter_tpu_torch import cli
+    from tidehunter_tpu_torch.pipeline.runner import load_adapters
+
+    pops, files, ada = option_inputs(tmp)
     out, met = os.path.join(tmp, "options.out"), os.path.join(tmp,
                                                               "options.json")
     trace = os.path.join(tmp, "options_trace.json")
@@ -1097,6 +1164,10 @@ def phase_options(tmp, dev):
         for r in pops[key][:OPTION_ORACLE_READS]:
             tasks.append((r, mtp, "--msa" in args))
             got.append((label, r.name, recs.get(r.name, "")))
+    # the main path's run once more, untimed, under torch.profiler
+    label, key, args = OPTION_RUNS[0]
+    trace_run(lambda: cli.main([*ada, *args, "--device", dev.type, "-o", out,
+                                files[key]]), dev, f"options {label}")
     t0 = time.perf_counter()
     want = oracle_records(tasks)
     bad = [f"{label}: {name}" for (label, name, g), w in zip(got, want)
@@ -1481,6 +1552,9 @@ def main(argv=None) -> int:
           f"({time.perf_counter() - t0:.1f} s; port "
           f"{os.path.dirname(os.path.abspath(K.__file__))})", flush=True)
     if only:
+        if checks.wants("myers_hw"):
+            myers_check(checks, MAIN_SHAPES["myers_hw"],
+                        *myers_main_launch(dev))
         phase_seed_checks(checks, dev)
         return 0
     t0 = time.perf_counter()

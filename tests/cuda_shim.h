@@ -6,9 +6,10 @@
 // diverge across a shuffle deadlocks here, as the CUDA contract forbids).
 // Shared memory is filled with 0xA5 bytes, not zeros, as the card gives
 // no initial value.  cp.async copies (cuda_pipeline.h) are synchronous.
-// Intrinsics compute their exact integer definitions; a ballot or a
-// reduction is a barrier of the warp like a shuffle, an atomic a
-// std::atomic_ref operation.  cudaLaunchKernelEx
+// A shuffle moves a value of up to 8 bytes whole (CUDA's 32- and 64-bit
+// overloads).  Intrinsics compute their exact integer definitions; a
+// ballot or a reduction is a barrier of the warp like a shuffle, an atomic
+// a std::atomic_ref operation.  cudaLaunchKernelEx
 // runs the CTAs of a thread-block cluster at once: cooperative_groups'
 // this_cluster().sync() is a barrier of all their threads and
 // map_shared_rank() points into another CTA's shared memory, which is
@@ -17,7 +18,7 @@
 // read of its shared memory after it exited, which CUDA forbids, shows
 // every time.  The SM count
 // a program reads is $CUDA_SHIM_SMS (default 132), so that a test can steer
-// a launcher's choice of cluster, and the opt-in shared memory a block may
+// a launcher's choice of cluster or of lanes a problem, and the opt-in shared memory a block may
 // use is $CUDA_SHIM_SMEM (default 232448, sm_90's), so that a test can
 // steer a launcher's choice of route by shared-memory capacity.
 #pragma once
@@ -99,6 +100,7 @@ inline const char* cudaGetErrorString(int) { return "cuda_shim"; }
 struct WarpCtx {
   std::barrier<> bar{32};
   int vals[32];
+  unsigned long long vals64[32];
 };
 struct BlockCtx {
   std::unique_ptr<std::barrier<>> bar;
@@ -162,27 +164,31 @@ inline void __syncwarp(unsigned = 0xffffffffu) {
 }
 
 // the value of lane src(lane) of the warp; a lane whose source lies
-// outside the warp keeps its own
-template <class F> inline int shfl_impl(int v, F src_of) {
+// outside the warp keeps its own.  Any type of up to 8 bytes, as CUDA's
+// overloads (int, unsigned, long long, unsigned long long, ...) take it,
+// moved whole: a 64-bit value is one exchange, not two 32-bit halves.
+template <class T, class F> inline T shfl_impl(T v, F src_of) {
+  static_assert(sizeof(T) <= sizeof(unsigned long long));
   WarpCtx* w = my_warp();
   const int lane = threadIdx.x & 31;
-  w->vals[lane] = v;
+  std::memcpy(&w->vals64[lane], &v, sizeof(T));
   w->bar.arrive_and_wait();
   const int src = src_of(lane);
-  const int r = (src >= 0 && src < 32) ? w->vals[src] : v;
+  T r = v;
+  if (src >= 0 && src < 32) std::memcpy(&r, &w->vals64[src], sizeof(T));
   w->bar.arrive_and_wait();
   return r;
 }
-inline int __shfl_up_sync(unsigned, int v, int d) {
+template <class T> inline T __shfl_up_sync(unsigned, T v, int d) {
   return shfl_impl(v, [d](int l) { return l - d; });
 }
-inline int __shfl_down_sync(unsigned, int v, int d) {
+template <class T> inline T __shfl_down_sync(unsigned, T v, int d) {
   return shfl_impl(v, [d](int l) { return l + d; });
 }
-inline int __shfl_xor_sync(unsigned, int v, int m) {
+template <class T> inline T __shfl_xor_sync(unsigned, T v, int m) {
   return shfl_impl(v, [m](int l) { return l ^ m; });
 }
-inline int __shfl_sync(unsigned, int v, int src) {
+template <class T> inline T __shfl_sync(unsigned, T v, int src) {
   return shfl_impl(v, [src](int) { return src & 31; });
 }
 
@@ -216,6 +222,11 @@ inline int atomicAdd(int* p, int v) {
 inline int __clz(int x) { return x ? __builtin_clz((unsigned)x) : 32; }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline int __ffs(int x) { return __builtin_ffs(x); }
+inline unsigned long long __brevll(unsigned long long x) {
+  unsigned long long r = 0;
+  for (int i = 0; i < 64; ++i) r |= ((x >> i) & 1ull) << (63 - i);
+  return r;
+}
 
 // cuda_pipeline.h's primitives: the copy is done at once, so commit and
 // wait have nothing left to do

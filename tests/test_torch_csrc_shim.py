@@ -89,6 +89,8 @@ def lib(tmp_path_factory):
         fn.argtypes = [ctypes.c_int] * (4 if "row" in name else 5)
         fn.restype = ctypes.c_longlong
         fns[name] = fn
+    fns["myers_hw_lanes"] = dll.myers_hw_lanes
+    fns["myers_hw_lanes"].argtypes = [ctypes.c_int]
     fns["shim_last_cluster"] = dll.shim_last_cluster
     return fns
 
@@ -384,6 +386,35 @@ def test_myers_hw_source_refuses_bad_words(lib):
     out = np.zeros((3, 1), np.int32)
     assert lib["myers_hw"](_p(seq.numpy()), _p(meta.numpy()), 1, 3,
                            _p(out), None) != 0
+
+
+@pytest.mark.parametrize("W", [1, 2])
+@pytest.mark.parametrize("P", [1, 2, 4, 8, 16, 32, 64, 128])
+def test_myers_hw_source_lanes_match_plain(lib, monkeypatch, P, W):
+    """Every case of test_torch_myers and of the kernel-order model's
+    MYERS_CASES (segment-boundary ties, k = -1 / 0 / >= m, queries of 1-128
+    bp, short and all-N targets, the best at the first and last column) in
+    one launch at P lanes a problem, steered by the SM count the launcher
+    reads: several problems a warp (P < 32), a warp, and a problem over 2
+    and 4 warps (P = 64, 128); with P > 1 also the model's cases built to
+    show the warm-up tight (an alignment of cost k over m + k columns ending
+    on the first column of segment P // 2).  W = 2 takes every case, W = 1
+    those whose query fits one word."""
+    trips = [x for f in KO._myers_all_cases().values() for x in zip(*f())
+             if W == 2 or len(x[0]) <= 64]
+    for m, k, n in ((20, 3, 400), (64, 12, 600), (128, 25, 1200))[:W + 1]:
+        if P > 1:
+            trips.append((*KO._myers_tight_case(m, k, P, n), k))
+    seq, meta, rows = MY.pack(*zip(*trips))
+    assert len(rows) == len(trips)
+    B = meta.shape[1]
+    sms = -(-B * P // KO.MYERS_LANES_PER_SM)
+    assert KO.myers_lanes(B, sms) == P
+    monkeypatch.setenv("CUDA_SHIM_SMS", str(sms))
+    assert lib["myers_hw_lanes"](B) == P
+    want = MY.hw_batch_plain(torch.from_numpy(seq), torch.from_numpy(meta))
+    np.testing.assert_array_equal(_myers_run(lib, seq, meta, W),
+                                  want.numpy())
 
 
 def _seed_reads(k, w, hpc, n, L):

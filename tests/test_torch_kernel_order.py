@@ -1242,3 +1242,252 @@ def test_chain_skip_leaves_outputs_unchanged(window):
         m = int(cnt[i])
         np.testing.assert_array_equal(got[0][i, :m], np.asarray(js[0])[i, :m])
         np.testing.assert_array_equal(got[1][i, :m], np.asarray(js[1])[i, :m])
+
+
+# ------------------------------------------------------- myers_hw ------
+
+MYERS_THREADS, = _csrc("myers_hw.cu", r"MYERS_THREADS = (\d+);")
+MYERS_LANES_PER_SM, = _csrc("myers_hw.cu", r"LANES_PER_SM = (\d+);")
+MYERS_NO_KEY = (1 << 64) - 1
+MYERS_MODEL_LANES = (1, 4, 32, 128)   # several a warp, a warp, 4 warps
+
+
+def myers_lanes(B, sms):
+    """myers_hw_lanes of csrc/myers_hw.cu: the largest power of two P <=
+    MYERS_THREADS with B P <= LANES_PER_SM x sms, at least 1."""
+    P = 1
+    while P < MYERS_THREADS and B * 2 * P <= MYERS_LANES_PER_SM * sms:
+        P *= 2
+    return P
+
+
+def myers_warmup(m, k):
+    """O of csrc/myers_hw.cu: an alignment of cost d spans at most m + d
+    columns, and d <= k (k >= 0) and d <= m."""
+    return m + (m if k < 0 or k > m else k) - 1
+
+
+def _myers_peq(codes):
+    peq = [0] * 5
+    for i, c in enumerate(codes):
+        peq[int(c)] |= 1 << i
+    return peq
+
+
+def _myers_brev(peq, m):
+    """reverse_peq of csrc/myers_hw.cu: each mask's 64 W bits reversed,
+    then shifted right by 64 W - m."""
+    bits = 64 * (1 if m <= 64 else 2)
+    return [int(format(v, f"0{bits}b")[::-1], 2) >> (bits - m) for v in peq]
+
+
+def _myers_scores(peq, m, codes, shw):
+    """myers_step over the columns of codes from the fresh state: the score
+    of the last query row after each (HW injects 0 at the top, SHW 1)."""
+    mask, top = (1 << m) - 1, 1 << (m - 1)
+    pv, mv, score = mask, 0, m
+    for c in codes:
+        eq = peq[int(c)]
+        xv = eq | mv
+        xh = (((eq & pv) + pv) ^ pv) | eq
+        ph = mv | (~(xh | pv) & mask)
+        mh = pv & xh
+        score += bool(ph & top) - bool(mh & top)
+        ph = ((ph << 1) | shw) & mask
+        mh = (mh << 1) & mask
+        pv = mh | (~(xv | ph) & mask)
+        mv = ph & xv
+        yield score
+
+
+def _myers_reduce(keys):
+    """The least key of a problem's P lanes as csrc/myers_hw.cu takes it:
+    xor shuffles over d = 1, 2, ... < min(P, 32), then (P > 32) each lane
+    the least of the warps' keys in shared memory; every lane ends with
+    the same key."""
+    P, k = len(keys), list(keys)
+    d = 1
+    while d < min(P, 32):
+        k = [min(k[i], k[i ^ d]) for i in range(P)]
+        d *= 2
+    if P > 32:
+        warps = [k[w * 32] for w in range(P // 32)]
+        k = [min([k[i], *warps]) for i in range(P)]
+    assert len(set(k)) == 1
+    return k[0]
+
+
+def myers_hw_model(q, t, k, P, warmup=myers_warmup):
+    """(ed, start, end) of one problem (query and target codes 0..4) as
+    csrc/myers_hw.cu computes it on P lanes: lane s scores its segment
+    [s S, s S + S), S = ceil(n / P), after warmup(m, k) unreported columns
+    from the fresh state; the lanes' (score << 32 | column) keys reduce to
+    the least; the SHW pass over the reversed masks runs min(end + 1, m +
+    ed) columns of t[end], t[end - 1], ...  (-1, -1, -1) past k."""
+    m, n = len(q), len(t)
+    peq = _myers_peq(q)
+    S, O = -(-n // P), warmup(m, k)
+    keys = []
+    for s in range(P):
+        a, e = min(n, s * S), min(n, s * S + S)
+        key = MYERS_NO_KEY
+        if a < e:
+            best, col = 1 << 30, -1
+            j0 = max(0, a - O)
+            for j, sc in enumerate(_myers_scores(peq, m, t[j0:e], 0), j0):
+                if j >= a and sc < best:
+                    best, col = sc, j
+            key = best << 32 | col
+        keys.append(key)
+    key = _myers_reduce(keys)
+    best, end = key >> 32, key & 0xFFFFFFFF
+    if k >= 0 and best > k:
+        return -1, -1, -1
+    rpeq = _myers_brev(peq, m)
+    assert rpeq == _myers_peq(q[::-1])
+    cols = min(end + 1, m + best)
+    pos = -1
+    for j, sc in enumerate(_myers_scores(rpeq, m, t[end::-1][:cols], 1)):
+        if sc == best:
+            pos = j
+    return best, end - pos, end
+
+
+def _myers_boundary_cases():
+    """Equal scores on both sides of segment boundaries: 84 and 25 bp
+    adapters twice in a doubled consensus (one copy in each half), and
+    tandem targets (a query back to back, exact and at 10% error)."""
+    import test_torch_myers as TM
+
+    rng = np.random.default_rng(11)
+    qs, ts, ks = [], [], []
+    cons = TM._rand_seq(rng, 200)
+    for q in (TM.FIVE, TM.THREE):
+        unit = cons[:90] + TM._mutseq(rng, q, 0.05) + cons[90:]
+        for k in (-1, 0, 6, len(q)):
+            qs.append(q)
+            ts.append(unit + unit)
+            ks.append(k)
+    for m in (7, 33, 64):
+        q = TM._rand_seq(rng, m)
+        for tgt in (q * 9, "".join(TM._mutseq(rng, q, 0.1)
+                                   for _ in range(6))):
+            for k in (-1, 2):
+                qs.append(q)
+                ts.append(tgt)
+                ks.append(k)
+    return qs, ts, ks
+
+
+def _myers_k_cases():
+    """k = -1, 0, m and past m, queries of 1, 64, 65 and 128 bp, each in a
+    random target holding a noisy copy of it."""
+    import test_torch_myers as TM
+
+    rng = np.random.default_rng(12)
+    qs, ts, ks = [], [], []
+    for m in (1, 64, 65, 128):
+        q = TM._rand_seq(rng, m)
+        t = TM._rand_seq(rng, 150)
+        t = t[:70] + TM._mutseq(rng, q, 0.08) + t[70:]
+        for k in (-1, 0, m, m + 7):
+            qs.append(q)
+            ts.append(t)
+            ks.append(k)
+    return qs, ts, ks
+
+
+def _myers_edge_cases():
+    """Targets shorter than one segment and than the query, all-N targets
+    (with and without N in the query), and the best score at column 0 and
+    at the last column."""
+    import test_torch_myers as TM
+
+    rng = np.random.default_rng(13)
+    q65 = TM._rand_seq(rng, 65)
+    rows = [("ACGTA", "G", -1), ("ACGTA", "CGT", 1), (q65, q65[10:40], -1),
+            (q65, q65[:64], 3), ("A", "C", 0), ("A", "A", 0),
+            ("ACGT", "N" * 50, -1), ("ACGT", "N" * 50, 2),
+            ("ACNNT", "N" * 50, -1), (q65, "N" * 300, -1),
+            ("GGGG", "G" + "T" * 100, -1), ("GGGG", "G" + "T" * 100, 3),
+            (q65, q65 + TM._rand_seq(rng, 200), 5),
+            (q65, TM._rand_seq(rng, 237) + q65, -1),
+            ("ACGTTGCA", TM._rand_seq(rng, 400) + "ACGTTGCA", 0)]
+    return tuple(list(x) for x in zip(*rows))
+
+
+MYERS_CASES = {"boundaries": _myers_boundary_cases, "k": _myers_k_cases,
+               "edges": _myers_edge_cases}
+
+
+def _myers_all_cases():
+    import test_torch_myers as TM
+
+    return {**{f"tm_{k}": v for k, v in TM.CASES.items()}, **MYERS_CASES}
+
+
+@pytest.mark.parametrize("case", list(_myers_all_cases()))
+def test_myers_schedule_matches_plain_jax_and_oracle(case):
+    """The model at 1, 4, 32 and 128 lanes a problem gives hw_batch_plain's,
+    align_hw's and the JAX hw_batch's (ed, start, end) on every case of
+    test_torch_myers and on MYERS_CASES."""
+    from test_torch_myers import _tensors
+
+    from tidehunter_tpu.ops.myers_jax import hw_batch as jax_hw_batch
+    from tidehunter_tpu_torch.ops import myers_device as MY
+    from tidehunter_tpu_torch.ops.myers import align_hw
+
+    queries, targets, ks = _myers_all_cases()[case]()
+    plain = MY.hw_batch_plain(*_tensors(queries, targets, ks)).T.tolist()
+    oracle = [align_hw(q, t, k) for q, t, k in zip(queries, targets, ks)]
+    assert jax_hw_batch(queries, targets, ks) == oracle
+    for P in MYERS_MODEL_LANES:
+        for r, (q, t, k) in enumerate(zip(queries, targets, ks)):
+            got = myers_hw_model(MY.encode5(q), MY.encode5(t), k, P)
+            assert list(got) == plain[r], (case, P, r)
+            ed, st, en = oracle[r]
+            assert got == (ed, -1 if st is None else st,
+                           -1 if en is None else en), (case, P, r)
+
+
+def _myers_tight_case(m, k, P, n):
+    """A target of n columns holding the query with k random bases inserted
+    inside it (an alignment of cost k over m + k columns) ending at the
+    first column a of segment P // 2 (S = ceil(n / P)), in random filler;
+    the seed is the first for which align_hw places it there."""
+    import test_torch_myers as TM
+
+    from tidehunter_tpu_torch.ops.myers import align_hw
+
+    a = -(-n // P) * (P // 2)
+    for seed in range(100):
+        rng = np.random.default_rng(seed)
+        q = TM._rand_seq(rng, m)
+        at = sorted(rng.choice(np.arange(1, m), k, replace=False))
+        body = "".join(TM._rand_seq(rng, 1) + c if i in at else c
+                       for i, c in enumerate(q))
+        t = (TM._rand_seq(rng, a + 1 - len(body)) + body
+             + TM._rand_seq(rng, n - a - 1))
+        if align_hw(q, t, k) == (k, a + 1 - m - k, a):
+            return q, t
+    raise AssertionError("no seed places the alignment at the boundary")
+
+
+@pytest.mark.parametrize("m,k,P,n", [(20, 3, 4, 400), (64, 12, 8, 600),
+                                     (65, 13, 32, 900), (128, 25, 128, 1200)])
+def test_myers_warmup_is_tight(m, k, P, n):
+    """An alignment of the largest cost allowed that starts m + k - 1
+    columns before a segment's first column and ends on it: the model with
+    O = myers_warmup(m, k) finds it, one column less of warm-up does not
+    (the lane cannot start the alignment, and the search then reports
+    nothing within k)."""
+    from tidehunter_tpu_torch.ops import myers_device as MY
+    from tidehunter_tpu_torch.ops.myers import align_hw
+
+    q, t = _myers_tight_case(m, k, P, n)
+    want = align_hw(q, t, k)
+    qc, tc = MY.encode5(q), MY.encode5(t)
+    assert myers_hw_model(qc, tc, k, P) == want
+    short = myers_hw_model(qc, tc, k, P,
+                           warmup=lambda m, k: myers_warmup(m, k) - 1)
+    assert short != want and short == (-1, -1, -1)

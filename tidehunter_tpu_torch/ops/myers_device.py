@@ -12,10 +12,13 @@ each (query, target, k) the ``(ed, start, end)`` of the host oracle
   * ``k >= 0`` and ``ed > k`` gives ``(-1, None, None)``.
 
 On a CUDA device every representable problem of a call goes to one launch
-of the hand-written kernel ``csrc/myers_hw.cu: myers_hw`` (one thread a
-problem, both passes in the launch, one pull); on the CPU the same
-tensors go to ``hw_batch_plain``, a column loop over ``[B]`` lanes of
-torch ops in the shape of ``myers_jax._scan_batch``.
+of the hand-written kernel ``csrc/myers_hw.cu: myers_hw`` (both passes in
+the launch, one pull): a problem's HW pass is split over up to 128 lanes,
+each scoring its own target segment after a warm-up of m + min(k, m) - 1
+columns, and the SHW start pass stops after min(end + 1, m + ed)
+columns.  On the CPU the same tensors go to ``hw_batch_plain``, a column
+loop over ``[B]`` lanes of torch ops in the shape of
+``myers_jax._scan_batch`` that walks every SHW column (end + 1).
 
 **The JAX package's rule for what the 2-bit+N code cannot represent**
 (``myers_jax.hw_batch``): an empty query or target, a query over 128 bp,
@@ -137,8 +140,11 @@ def myers_hw(seq: torch.Tensor, meta: torch.Tensor,
         raise ValueError(f"unsupported device {seq.device}")
     out = torch.empty((3, B), dtype=torch.int32, device=seq.device)
     if B:
-        K.MYERS_HW(seq.contiguous().data_ptr(), meta.contiguous().data_ptr(),
-                   B, 1 if qmax <= 64 else 2, out.data_ptr())
+        # the lanes are chosen for, and the launch made on, the data's card
+        with torch.cuda.device(seq.device):
+            K.MYERS_HW(seq.contiguous().data_ptr(),
+                       meta.contiguous().data_ptr(), B,
+                       1 if qmax <= 64 else 2, out.data_ptr())
     return out
 
 
