@@ -86,7 +86,30 @@ Phases, each printing its result on its own line:
      4's timed run; then two CLI processes with --dist 127.0.0.1:PORT/2/I
      -f 2 on the card, their shards merged by tools.merge byte-identical
      with one process's -f 2 run.  Phase 2 holds K1 at the walk shapes
-     ((128,128) B=507 and (256,256) B=1, t_left) to its plain version.
+     ((128,128) B=507 and (256,256) B=1, t_left) to its plain version;
+ 10. the corpora (tidehunter_tpu_torch/evals/fuzz.py, soak.py,
+     accuracy.py), every record held to the oracle.  The host oracle of
+     (a) and (b) runs over a pool of host processes while (c) and (a) run
+     on the card.  (c) the reference paper's accuracy protocol: its 14
+     configs at 8 reads each (2-30 kb reads, 2-20 copies, error
+     0.13-0.20) through accuracy.evaluate on make_engine, as the eval runs
+     them (one card: no mesh), every read's records hashed to its
+     committed oracle digest (evals/accuracy_digests.json), the table line
+     and reads/s of each config, and the launches of each route: profile_dp
+     by kernel (warp, strips, first version) and (T, W), K3's full-width
+     launches, wf_global's largest (LQ, LT); then the same under
+     TH_DEVICE_SEED=1 TH_DEVICE_CHAIN=1 with seed_hits' routes (one CTA, a
+     cluster of C, the global scratch).  (a) the 9 cases of
+     tests/test_fuzz.py (5 x 12 random reads, 4 x 14 adapter and control
+     reads, their adapter files in the phase's directory) through
+     Engine(...).process_chunk, a fresh engine a case, byte-identical with
+     the oracle; then on fresh engines under TH_HOST_ALN_CAP=0 and built by
+     make_engine under TH_MESH=-1, each byte-identical with the first run.
+     (b) the soak's seeds 1000-1029 at 12 reads a seed (360 reads; engines
+     cached by (w, hpc, polish) as the soak caches them): the seeds that
+     drew each switch, and the divergences and crashes, both 0.  Each of
+     these runs resets the launch counts before it and fails if a kernel
+     of its path did not launch.  No cut was needed.
 The line before the last is a JSON object with every kernel's launches,
 error, times and bound (the larger of its integer ops over the card's int32
 rate and its bytes over 3.35 TB/s; a profile DP's ops count the cells the
@@ -1750,6 +1773,273 @@ def phase_dist(tmp, fa, cli, dev):
           f"{single.count(chr(10))} records)", flush=True)
 
 
+# phase 10: the fuzz corpus, the soak and the accuracy protocol
+# (tidehunter_tpu_torch/evals/{fuzz,soak,accuracy}.py), every record held
+# to the oracle
+SOAK_SEEDS = range(1000, 1030)
+SOAK_READS = 12
+# (a)'s engines, each run on every case: (label, environment, built by
+# make_engine); the first is the one held to the oracle, the others to it
+CORPUS_ENGINES = (("Engine", {}, False),
+                  ("TH_HOST_ALN_CAP=0", {"TH_HOST_ALN_CAP": "0"}, False),
+                  ("TH_MESH=-1", {"TH_MESH": "-1"}, True))
+# kernels each of (a)'s engines must launch over the 9 cases (the adapter
+# cases search on the card; under a mesh the reads are seeded there; with
+# no host alignment cap every partition window is on K1)
+CORPUS_NEED = {"Engine": ("profile_dp", "profile_bt", "myers_hw"),
+               "TH_HOST_ALN_CAP=0": ("wf_global", "profile_dp",
+                                     "profile_bt", "myers_hw"),
+               "TH_MESH=-1": ("seed_hits", "profile_dp", "profile_bt",
+                              "myers_hw")}
+# (c): the eval's own route, then device seeding and chaining on the same
+# reads (seed_hits' routes on 2-30 kb reads)
+ACCURACY_RUNS = (("default", {}),
+                 ("TH_DEVICE_SEED=1 TH_DEVICE_CHAIN=1",
+                  {"TH_DEVICE_SEED": "1", "TH_DEVICE_CHAIN": "1"}))
+ACCURACY_NEED = ("wf_global", "wf_ext", "profile_dp", "profile_bt")
+
+
+def dp_route(T, W) -> str:
+    """profile_dp's kernel at (T, W), as csrc/profile_dp.cu's entry point
+    picks it."""
+    if (W == 128 and T <= 4096) or (W in (256, 512) and T < 4096):
+        return "warp"
+    if T == 4096 and W == 256:
+        return "first version"
+    return "strips"
+
+
+class SeedRoutes:
+    """Records, while active, the route of every seed_hits launch (one
+    CTA, a cluster of C or the global scratch), as csrc/seed_hits.cu's
+    seed_hits_route reports it; the launches are unchanged."""
+
+    def __init__(self):
+        from tidehunter_tpu_torch.ops import seeding_device as SD
+
+        self.sd, self.orig, self.routes = SD, SD._launch, []
+
+    def __enter__(self):
+        from tidehunter_tpu_torch import _kernels as K
+
+        def rec(bseq, length, k, use_hpc, min_p, max_p, w, packed):
+            B, L = bseq.shape
+            if B and L and bseq.device.type == "cuda":
+                with torch.cuda.device(bseq.device):
+                    C = K.host_call("seed_hits_route", [ctypes.c_int] * 4,
+                                    ctypes.c_int, L, int(use_hpc), w,
+                                    int(not self.sd.packed_ok(k, L)))
+                if C < 0:
+                    raise RuntimeError("seed_hits_route: the card's shared "
+                                       "memory could not be queried")
+                self.routes.append(({0: "global scratch", 1: "one CTA"}.get(
+                    C, f"cluster of {C}"), B, L))
+            return self.orig(bseq, length, k, use_hpc, min_p, max_p, w,
+                             packed)
+
+        self.sd._launch = rec
+        return self
+
+    def __exit__(self, *exc):
+        self.sd._launch = self.orig
+
+    def summary(self) -> str:
+        by = {}
+        for route, B, L in self.routes:
+            n, b, lo, hi = by.get(route, (0, 0, L, L))
+            by[route] = (n + 1, b + B, min(lo, L), max(hi, L))
+        return "; ".join(f"{r}: {n} launches, {b} reads, L {lo}-{hi}"
+                         for r, (n, b, lo, hi) in sorted(by.items()))
+
+
+def route_summary(shapes) -> str:
+    """profile_dp's launches by route and (T, W), K3's full-width ones
+    among them, and wf_global's largest (LQ, LT) with their launches and
+    largest B, from a LaunchShapes."""
+    dp = {}
+    for T, W, B in shapes.calls:
+        key = (dp_route(T, W), T, W)
+        n, hi = dp.get(key, (0, 0))
+        dp[key] = (n + 1, max(hi, B))
+    glob = {}
+    for LQ, LT, B in shapes.glob:
+        n, hi = glob.get((LQ, LT), (0, 0))
+        glob[(LQ, LT)] = (n + 1, max(hi, B))
+    largest = sorted(glob.items(), key=lambda x: -x[0][0] * x[0][1])[:4]
+    return ("profile_dp " + "; ".join(
+        f"{r} T={T} W={W or 'full'}: {n} launches, B up to {hi}"
+        for (r, T, W), (n, hi) in sorted(
+            dp.items(), key=lambda x: (x[0][0], x[0][1], x[0][2] or 0)))
+        + " | K3 full-width launches "
+        + str(sum(n for (_, _, W), (n, _) in dp.items() if W is None))
+        + " | wf_global largest " + "; ".join(
+            f"({lq},{lt}): {n} launches, B up to {hi}"
+            for (lq, lt), (n, hi) in largest))
+
+
+def _set_env(env, names):
+    for k in names:
+        os.environ.pop(k, None)
+    os.environ.update(env)
+
+
+def phase_corpus(tmp, dev):
+    """Phase 10: (a) the 9 fuzz cases through Engine on the card, held to
+    the oracle, then on a fresh engine under TH_HOST_ALN_CAP=0 and one
+    built by make_engine under TH_MESH=-1, each equal to the first run;
+    (c) the accuracy protocol at 8 reads a config through the eval's
+    make_engine, every read held to its committed oracle digest, with the
+    launches of each kernel route, once as the eval runs and once with
+    device seeding and chaining; (b) the soak's seeds, every record held
+    to the oracle.  The oracle of (a) and (b) runs over a pool of host
+    processes while (a) and (c) run on the card."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from tidehunter_tpu_torch import _kernels as K
+    from tidehunter_tpu_torch.engine import Engine, make_engine
+    from tidehunter_tpu_torch.evals import accuracy as A
+    from tidehunter_tpu_torch.evals import fuzz
+    from tidehunter_tpu_torch.evals import soak as S
+    from tidehunter_tpu_torch.utils.metrics import METRICS
+
+    env_names = MESH_ENV + ("TH_MSA",)
+    saved = {k: os.environ.get(k) for k in env_names}
+    cases = fuzz.all_cases(tmp)
+    draws = [fuzz.soak_draw(seed, SOAK_READS) for seed in SOAK_SEEDS]
+    tasks = ([(r, mtp, False) for _, mtp, reads in cases for r in reads]
+             + [(r, d[0], False) for d in draws for r in d[3]])
+    n = max(1, min(len(tasks), (os.cpu_count() or 2) - 1))
+    pool = ProcessPoolExecutor(n, mp_context=multiprocessing.get_context(
+        "spawn"))
+    t_oracle = time.perf_counter()
+    futs = [pool.submit(_oracle_one, t) for t in tasks]
+    try:
+        # (c) the accuracy protocol
+        digests = A.load_digests()
+        configs = A.CONFIGS
+        for label, env in ACCURACY_RUNS:
+            _set_env(env, env_names)
+            METRICS.reset()
+            K.reset_launches()
+            with LaunchShapes() as shapes, SeedRoutes() as seeds:
+                t0 = time.perf_counter()
+                n_held = A.evaluate(A.DIGEST_READS, dev.type, configs,
+                                    digests=digests,
+                                    sync=lambda: sync(dev))
+                wall = time.perf_counter() - t0
+            got = {k: v for k, v in K.launches().items() if v}
+            snap = METRICS.snapshot()
+            n_reads = A.DIGEST_READS * len(configs)
+            print(f"accuracy {label}: {n_reads} reads in {wall:.3f} s; "
+                  f"{n_held} reads' records match their oracle digests; "
+                  f"launches {json.dumps(got)}; msa_full_rounds "
+                  f"{int(snap.get('msa_full_rounds', 0))}, regions past "
+                  f"the largest bucket (host rule) "
+                  f"{int(snap.get('msa_host_oversize', 0))}", flush=True)
+            print(f"accuracy {label} routes: {route_summary(shapes)}",
+                  flush=True)
+            if seeds.routes:
+                print(f"accuracy {label} seed_hits routes: "
+                      f"{seeds.summary()}", flush=True)
+            need = ACCURACY_NEED + (("seed_hits", "chain_dp") if env
+                                    else ())
+            idle = [k for k in need if not got.get(k)]
+            if idle:
+                raise AssertionError(f"accuracy {label}: not launched: "
+                                     f"{idle}")
+            if n_held != n_reads:
+                raise AssertionError(f"accuracy {label}: {n_held} of "
+                                     f"{n_reads} reads held to digests")
+
+        # (a) the fuzz corpus
+        first = None
+        for label, env, via_make in CORPUS_ENGINES:
+            _set_env(env, env_names)
+            K.reset_launches()
+            outs = []
+            t0 = time.perf_counter()
+            for _, mtp, reads in cases:
+                eng = (make_engine(mtp, device=dev.type) if via_make
+                       else Engine(mtp, device=dev.type))
+                if via_make and (eng.mesh is None or len(eng.mesh) != 1):
+                    raise AssertionError(f"fuzz {label}: engine mesh "
+                                         f"{eng.mesh}")
+                outs.append(serialize(reads, eng.process_chunk(reads, mtp),
+                                      mtp))
+                eng.close()
+            sync(dev)
+            wall = time.perf_counter() - t0
+            got = {k: v for k, v in K.launches().items() if v}
+            idle = [k for k in CORPUS_NEED[label] if not got.get(k)]
+            if idle:
+                raise AssertionError(f"fuzz {label}: not launched: {idle}")
+            if first is None:
+                first = outs
+            else:
+                bad = [c[0] for c, a, b in zip(cases, outs, first) if a != b]
+                if bad:
+                    raise AssertionError(f"fuzz {label}: records differ "
+                                         f"from the first run: {bad}")
+            print(f"fuzz {label}: {len(cases)} cases "
+                  f"({sum(len(c[2]) for c in cases)} reads) in {wall:.3f} "
+                  f"s; launches {json.dumps(got)}"
+                  + ("" if outs is first else "; records byte-identical "
+                     "with the first run"), flush=True)
+        want, i = [], 0
+        for _, _, reads in cases:
+            want.append("".join(f.result() for f in futs[i:i + len(reads)]))
+            i += len(reads)
+        bad = [c[0] for c, a, b in zip(cases, first, want) if a != b]
+        if bad:
+            raise AssertionError(f"fuzz: records differ from the oracle: "
+                                 f"{bad}")
+        print(f"fuzz oracle: all {i} reads of the {len(cases)} cases "
+              f"({sum(w.count(chr(10)) for w in want)} record lines) "
+              f"byte-identical with tidehunter_core under each engine",
+              flush=True)
+
+        # (b) the soak
+        soak_want = {}
+        for seed, d in zip(SOAK_SEEDS, draws):
+            soak_want[seed] = "".join(f.result()
+                                      for f in futs[i:i + len(d[3])])
+            i += len(d[3])
+        print(f"oracle of (a) and (b): {len(tasks)} reads over {n} host "
+              f"processes, done {time.perf_counter() - t_oracle:.1f} s "
+              f"after their start", flush=True)
+        _set_env({}, env_names)
+        K.reset_launches()
+        t0 = time.perf_counter()
+        res = S.soak(SOAK_SEEDS, SOAK_READS, dev.type, want=soak_want,
+                     log=lambda s: print(f"soak: {s}", flush=True))
+        sync(dev)
+        wall = time.perf_counter() - t0
+        got = {k: v for k, v in K.launches().items() if v}
+        drawn = dict(sorted(res.drawn.items()))
+        print(f"soak: seeds {SOAK_SEEDS.start}-{SOAK_SEEDS.stop - 1} x "
+              f"{SOAK_READS} reads ({res.runs * SOAK_READS} reads) in "
+              f"{wall:.3f} s; seeds drawing each switch "
+              f"{json.dumps(drawn)}; divergences {len(res.divergences)}, "
+              f"crashes {len(res.crashes)}; launches {json.dumps(got)}",
+              flush=True)
+        if res.failures or res.runs != len(SOAK_SEEDS):
+            raise AssertionError(f"soak: {res.runs} runs, divergences "
+                                 f"{res.divergences}, crashes "
+                                 f"{res.crashes}")
+        need = (["profile_dp", "profile_bt"]
+                + (["seed_hits"] if drawn.get("device seeding") else [])
+                + (["chain_dp"] if drawn.get("device chaining") else []))
+        idle = [k for k in need if not got.get(k)]
+        if idle:
+            raise AssertionError(f"soak: not launched: {idle}")
+        print(f"soak oracle: all {res.runs * SOAK_READS} reads' records "
+              f"byte-identical with tidehunter_core", flush=True)
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+        _set_env({k: v for k, v in saved.items() if v is not None},
+                 env_names)
+
 KERNEL_META = {
     "wf_global": ("tidehunter_tpu_torch/csrc/wavefront.cu",
                   "tidehunter_tpu/ops/wavefront.py:154"),
@@ -1862,6 +2152,9 @@ def main(argv=None) -> int:
         walk_launches = phase_mesh(tmp, dev, slice_run)
         checks.rows["wf_global"]["walk"]["launches"] = walk_launches
         print(f"mesh phase: {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        phase_corpus(tmp, dev)
+        print(f"corpus phase: {time.perf_counter() - t0:.1f} s", flush=True)
 
     print(f"whole run: {time.perf_counter() - T0:.1f} s", flush=True)
     rows = []

@@ -89,6 +89,8 @@ def lib(tmp_path_factory):
         fn.argtypes = [ctypes.c_int] * (4 if "row" in name else 5)
         fn.restype = ctypes.c_longlong
         fns[name] = fn
+    fns["seed_hits_route"] = dll.seed_hits_route
+    fns["seed_hits_route"].argtypes = [ctypes.c_int] * 4
     fns["myers_hw_lanes"] = dll.myers_hw_lanes
     fns["myers_hw_lanes"].argtypes = [ctypes.c_int]
     fns["shim_last_cluster"] = dll.shim_last_cluster
@@ -536,6 +538,10 @@ def test_seed_hits_source_packed_and_routes(lib, monkeypatch):
     assert lib["seed_hits_scratch_bytes"](3, 20000, 1, 5, 1) == 0
     big = lib["seed_hits_row_bytes"](70000, 1, 5, 1)
     assert lib["seed_hits_scratch_bytes"](3, 70000, 1, 5, 1) == 3 * big
+    # the route query: one CTA, a cluster, the global scratch
+    assert lib["seed_hits_route"](4400, 0, 1, 0) == 1
+    assert 2 <= lib["seed_hits_route"](20000, 1, 5, 1) <= 8
+    assert lib["seed_hits_route"](70000, 1, 5, 1) == 0
     # a packed launch of 64-bit words is refused before any write
     out = np.full((1, 16), 0x55, np.int32)
     assert lib["seed_hits"](_p(batch[:1, :16].copy()), _p(lens[:1]), 1, 16,
@@ -587,6 +593,9 @@ def test_seed_hits_source_routes_match_plain(lib, monkeypatch, route, k, w,
         got = _seed_run(lib, batch, lens, k, w, hpc, min_p, 10000, 64,
                         scratch=route == "global")
         assert lib["shim_last_cluster"]() == SEED_CLUSTER[route]
+        assert lib["seed_hits_route"](
+            L, int(hpc), w, int(not SD.packed_ok(k, L))) == (
+                0 if route == "global" else SEED_CLUSTER[route])
         want = SD.seed_plain(tb, tl, k=k, use_hpc=hpc, min_p=min_p,
                              max_p=10000, w=w)
         for g, x in zip(got, want):

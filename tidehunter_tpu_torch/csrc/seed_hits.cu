@@ -710,6 +710,16 @@ extern "C" long long seed_hits_scratch_bytes(int B, int L, int hpc, int w,
              : 0;
 }
 
+// The route of a launch at read width L: 1 = one CTA a read, 2..8 = a
+// thread-block cluster of that many CTAs, 0 = the global scratch; -1 if
+// the device cannot be queried.
+extern "C" int seed_hits_route(int L, int hpc, int w, int wide) {
+  int cap = 0;
+  if (smem_cap(&cap)) return -1;
+  const Route r = seed_route(L, hpc, w, wide, cap);
+  return r.mode == GLOBAL ? 0 : r.C;
+}
+
 // codes [B, L] uint8 (0..3, 4 = N, 4 past a read), lens [B] int32; k 1..16;
 // wide: 64-bit seed words (required unless 2k + pb <= 31); pb: bits of a
 // position (max(1, bit length of L - 1)); packed: ends receives (end << pb
