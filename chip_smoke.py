@@ -15,7 +15,10 @@ Phases, each printing its result on its own line:
      gives it, with both times (CUDA events, the kernel's runs queued
      behind a device sleep); wf_ext also at each lanes-a-thread choice;
      profile_dp off the warp kernel's rungs (full width, the 4096 bucket)
-     also against its first version, equal and timed in the same run;
+     also against its first version, and on the 4096 bucket's band rungs
+     against the kernels of the other routes (profile_dp_on), each equal
+     and timed in the same run; one region (B=1) at T=4096 W=256 on the
+     first version, the warp kernel and the band kernel, in us a row;
      myers_hw (the adapter search) against hw_batch_plain at the adapter
      path's shapes (4096 searches of the 84 and 25 bp adapters in ~1.1 kb
      doubled consensus), the single-copy path's (2048 searches of 32, 64,
@@ -39,7 +42,9 @@ Phases, each printing its result on its own line:
   5. short and long periods end to end: 512 reads of a 60 bp unit x 60,
      256 of 1500 bp x 6 and 128 of 3000 bp x 4 (synth_read, seed 43)
      through the same runner and engine, one warm run then a timed run;
-     full-width rounds (K3) and the 4096 bucket must have launched; the
+     full-width rounds (K3) and the 4096 bucket's W=256 must have
+     launched, the latter on profile_dp's route there (the band kernel),
+     whose launches by route the phase prints; the
      timed run's records of the first 8 reads of each population
      byte-identical with tidehunter_core (run over a pool of host
      processes); the timed run once more under torch.profiler;
@@ -96,7 +101,8 @@ Phases, each printing its result on its own line:
      them (one card: no mesh), every read's records hashed to its
      committed oracle digest (evals/accuracy_digests.json), the table line
      and reads/s of each config, and the launches of each route: profile_dp
-     by kernel (warp, strips, first version) and (T, W), K3's full-width
+     by kernel (warp, strips, band) and (T, W), failing unless the 4096
+     bucket's W=256 launched on its route, K3's full-width
      launches, wf_global's largest (LQ, LT); then the same under
      TH_DEVICE_SEED=1 TH_DEVICE_CHAIN=1 with seed_hits' routes (one CTA, a
      cluster of C, the global scratch).  (a) the 9 cases of
@@ -116,7 +122,9 @@ rate and its bytes over 3.35 TB/s; a profile DP's ops count the cells the
 data needs, its bytes every lane of the rows written; seed_hits' and
 chain_dp's the op counts in their sources' headers of the function's own
 work: each read's live stream lanes and a comparison sort of them, and
-each cell's scanned predecessors; wf_global's also holds its walk row);
+each cell's scanned predecessors; wf_global's also holds its walk row;
+profile_dp_band, profile_dp's route on the 4096 bucket's band rungs, has
+its own row: its launches are the periods path's on that route);
 the whole run's time is printed before them, and the last line is the
 run's device record.  Any failure raises and exits non-zero without those two lines.
 Without a CUDA card it exits 2.  JAX, the JAX package, bench and
@@ -159,11 +167,12 @@ TOL = 0   # every kernel output is an integer, compared exactly
 # in a global scratch (6144, 8192).  wf_ext's lanes a thread by target
 # bucket and launch size (ops/wavefront.EXT_LANES): 1 at B <= the SM
 # count and 2 above it up to T=1024, 4 at 4096, 16 at 8192.
-# profile_dp's: the warp kernel on the W=128/256/512 rungs of T=640 and
-# on the 4096 bucket's W=128; the strips at full width (a warp a region at
-# T=128 with the short-period path's ~700 regions a launch; 2 columns a
-# lane over one CTA at T=256 and over clusters from T=640) and on the 4096
-# bucket's W=512; the first version on its W=256.
+# profile_dp's: the warp kernel on the W=128/256/512 rungs of T=640; the
+# strips at full width (a warp a region at T=128 with the short-period
+# path's ~700 regions a launch; 2 columns a lane over one CTA at T=256 and
+# over clusters from T=640); the band kernel on the 4096 bucket's W=128,
+# 256 and 512, at the protocol's B=8, the periods path's B=121 (W=256)
+# and B=125 (W=128), and B=64.
 # profile_bt has one kernel for every rung: whole band rows or 128-lane
 # windows a tile.
 WF_CASES = [("iden_only", 2048, 512, 512), ("iden_only", 4096, 512, 512),
@@ -190,8 +199,22 @@ MSA_CASES = [(640, 128, 512, 450), (640, 128, 8, 450), (640, 128, 1, 450),
              (640, None, 64, 450), (128, None, 704, 60),
              (256, None, 64, 200), (2048, None, 8, 1500),
              (4096, 128, 64, 3000), (4096, 256, 64, 3000),
-             (4096, 512, 8, 3000), (4096, None, 2, 3000)]
-WARP_RUNGS = (128, 256, 512)    # profile_dp_warp's rungs below T=4096
+             (4096, 512, 8, 3000), (4096, None, 2, 3000),
+             (4096, 256, 8, 3000), (4096, 256, 121, 3000),
+             (4096, 128, 8, 3000), (4096, 128, 125, 3000)]
+# the band kernel's launch sizes beyond B=64 (the protocol's B=8, the
+# periods path's largest): profile_bt reads their planes as it reads the
+# B=64 ones checked above, so only profile_dp is checked there
+DP_ONLY = MSA_CASES[-4:]
+# the entry point whose route each kernel of the summary is (--kernels
+# profile_dp checks them all)
+ENTRY_POINT = {"profile_dp_band": "profile_dp"}
+# the shape the band kernel was written for: phases 5 and 10 (c) fail
+# unless their runs reach it on profile_dp's route there
+BAND_SHAPE = (4096, 256)
+# one region at the 4096 bucket's W=256 with a 3000 bp unit: (T, W, unit
+# length) of row_cost
+ROW_COST = (4096, 256, 3000)
 # the check whose numbers stand for each kernel in the summary line: the
 # largest launch shape of the slice (for wf_ext the route of its launches
 # of more than one problem an SM, which hold most of its slice time; for
@@ -200,6 +223,7 @@ MAIN_SHAPES = {"wf_global": "iden_only (512,512) B=4096",
                "wf_ext": "ext (512,640) B=1024",
                "profile_dp": "T=640 W=128 B=512",
                "profile_dp_full": "T=128 W=full B=704",
+               "profile_dp_band": "T=4096 W=256 B=121",
                "profile_bt": "T=640 W=128 B=512",
                "myers_hw": "largest launch of -5 -3 -f 2",
                "seed_hits": "slice chunk k=8 w=1 B=512 packed",
@@ -212,10 +236,11 @@ LANES = (1, 2, 4)
 PROBE_CASES = [(512, 128), (200, 7)]
 SLICE_READS = 1024
 SLICE_KERNELS = ("wf_global", "wf_ext", "profile_dp", "profile_bt")
-# kernel names in a trace -> the kernel (profile_dp has three)
+# kernel names in a trace -> the kernel (profile_dp has four)
 TRACE_NAMES = {"wf_global_kernel": "wf_global", "wf_ext_kernel": "wf_ext",
                "profile_dp_warp": "profile_dp_warp",
                "profile_dp_strip": "profile_dp_strip",
+               "profile_dp_band": "profile_dp_band",
                "profile_dp_kernel": "profile_dp_first",
                "profile_bt_warp": "profile_bt",
                "myers_hw_kernel": "myers_hw"}
@@ -376,42 +401,50 @@ class Checks:
         self.rows = {}
 
     def wants(self, kernel) -> bool:
-        return self.only is None or kernel in self.only
+        return (self.only is None or kernel in self.only
+                or ENTRY_POINT.get(kernel) in self.only)
 
     def run(self, kernel, label, kern_fn, plain_fn, work, select=None,
-            reps=5, first_fn=None, library_fn=None):
+            reps=5, beside=None, library_fn=None):
         """Compare, then time and bound (work() -> (integer ops, bytes));
-        with first_fn, the first version too (equal, timed beside); with
-        library_fn, the PyTorch call timed beside (library_ms); the
-        main-path shape's numbers go to the summary."""
+        beside: {name: fn} of other kernels of the same function (the first
+        version, the other routes' kernels), each equal and timed beside as
+        name_ms; with library_fn, the PyTorch call timed beside
+        (library_ms); the main-path shape's numbers go to the summary."""
         if not self.wants(kernel):
             return
+        beside = beside or {}
         sel = select or (lambda x: x)
         plain_ms, want = timed(plain_fn)
         got, want = sel(kern_fn()), sel(want)
         err = max_err(got, want)
-        if first_fn is not None:
-            err = max(err, max_err(sel(first_fn()), want))
+        for name, fn in beside.items():
+            e = max_err(sel(fn()), want)
+            if e > TOL:
+                raise AssertionError(f"{kernel} {label} ({name}): "
+                                     f"max_abs_err {e}")
         if err > TOL:
             raise AssertionError(f"{kernel} {label}: max_abs_err {err}")
         ms = cuda_ms(kern_fn, reps)
-        first_ms = cuda_ms(first_fn, reps) if first_fn else None
+        beside_ms = {f"{name}_ms": cuda_ms(fn, reps)
+                     for name, fn in beside.items()}
         library_ms = cuda_ms(library_fn, reps) if library_fn else None
         self.record(kernel, label, err, ms, plain_ms, *work(),
-                    main=label == MAIN_SHAPES[kernel], first_ms=first_ms,
+                    main=label == MAIN_SHAPES[kernel], beside_ms=beside_ms,
                     library_ms=library_ms)
 
     def record(self, kernel, label, err, ms, plain_ms, ops, nbytes, main,
-               first_ms=None, library_ms=None):
+               beside_ms=None, library_ms=None):
         bound_ms, by = self.card.bound(ops, nbytes)
-        first = (f" first_version_ms={first_ms:.4f} ({first_ms / ms:.2f}x)"
-                 if first_ms else "")
+        beside_ms = beside_ms or {}
+        others = "".join(f" {k}={v:.4f} ({v / ms:.2f}x)"
+                         for k, v in beside_ms.items())
         lib = (f" library_ms={library_ms:.4f}" if library_ms is not None
                else "")
         print(f"check {kernel} {label}: max_abs_err={err} ms={ms:.4f}"
-              f"{first}{lib} plain_ms={plain_ms:.2f} bound_ms={bound_ms:.4f} "
-              f"({by}: {ops:.0f} int ops, {nbytes:.0f} bytes) share of "
-              f"bound {bound_ms / ms:.4f}", flush=True)
+              f"{others}{lib} plain_ms={plain_ms:.2f} bound_ms="
+              f"{bound_ms:.4f} ({by}: {ops:.0f} int ops, {nbytes:.0f} "
+              f"bytes) share of bound {bound_ms / ms:.4f}", flush=True)
         row = self.rows.setdefault(kernel, {"max_abs_err": 0})
         row["max_abs_err"] = max(row["max_abs_err"], err)
         if label == WALK_LABEL:
@@ -419,10 +452,7 @@ class Checks:
                            "bound_ms": bound_ms, "bound_by": by}
         if main:
             row.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                       bound_by=by)
-            if first_ms:
-                row["first_version_ms"] = first_ms
-            row["library_ms"] = library_ms
+                       bound_by=by, library_ms=library_ms, **beside_ms)
 
 
 def _mutate(rng, u, err):
@@ -485,6 +515,51 @@ def dp_cells(qlen, ncol, W) -> float:
     return float(n.double().sum())
 
 
+def msa_round(rng, msa, T, W, B, L, dev):
+    """One unit round of B regions (the second unit against the profile of
+    the first, both L bp at 10% error from one base): profile_dp's
+    arguments and the [2T-1, B] mask of the rows each region writes."""
+    units = np.full((B, 2, T), 4, np.uint8)
+    ulen = np.zeros((B, 2), np.int32)
+    for b in range(B):
+        base = rng.integers(0, 4, L).astype(np.uint8)
+        for k in range(2):
+            u = _mutate(rng, base, 0.1)[:T]
+            units[b, k, :len(u)] = u
+            ulen[b, k] = len(u)
+    units_d = torch.as_tensor(units, device=dev)
+    ulen_d = torch.as_tensor(ulen, device=dev)
+    st = msa.init_state(units_d, ulen_d)
+    sub, wdel, wl, wdel2, wl2 = msa.scores_step(st)
+    unit, qlen = units_d[:, 1].contiguous(), ulen_d[:, 1].contiguous()
+    rows = torch.arange(2 * T - 1, device=dev)[:, None]
+    live = rows < (qlen + st.ncol - 1)[None, :]      # [2T-1, B]
+    return (unit, qlen, st.ncol, sub, wl, wdel, wl2, wdel2, msa.costs,
+            W), live
+
+
+def row_cost(dev, msa):
+    """One region (B=1) at ROW_COST's shape on the first version and on
+    each of profile_dp's band-width kernels: every plane equal to the
+    plain version's on its live rows, and its time a row (CUDA events,
+    mean of 3) -- what a row of one region costs when nothing else runs on
+    the card."""
+    from tidehunter_tpu_torch.ops import msa_device as MD
+
+    T, W, L = ROW_COST
+    args, live = msa_round(np.random.default_rng(12), msa, T, W, 1, L, dev)
+    nrows = int(live.sum())
+    want = MD.profile_dp_plain(*args)[:nrows]
+    for name in ("first", "warp", "band"):
+        fn = lambda name=name: MD.profile_dp(*args, kernel=name)  # noqa: E731
+        err = max_err((fn()[:nrows],), (want,))
+        if err > TOL:
+            raise AssertionError(f"row_cost {name}: max_abs_err {err}")
+        ms = cuda_ms(fn, 3)
+        print(f"row cost {name} T={T} W={W} B=1: {nrows} rows, "
+              f"ms={ms:.4f} = {ms * 1e3 / nrows:.4f} us a row", flush=True)
+
+
 def phase_kernels(checks, dev, lanes=True):
     """Every check of WF_CASES and MSA_CASES; with lanes, wf_ext's lanes a
     thread timed at EXT_LANES_SWEEP."""
@@ -527,47 +602,47 @@ def phase_kernels(checks, dev, lanes=True):
     # profile of the first
     msa = MD.DeviceMSA(2, 4, 4, 2, gap_open2=24, gap_ext2=1, device=dev)
     for T, W, B, L in MSA_CASES:
-        units = np.full((B, 2, T), 4, np.uint8)
-        ulen = np.zeros((B, 2), np.int32)
-        for b in range(B):
-            base = rng.integers(0, 4, L).astype(np.uint8)
-            for k in range(2):
-                u = _mutate(rng, base, 0.1)[:T]
-                units[b, k, :len(u)] = u
-                ulen[b, k] = len(u)
-        units_d = torch.as_tensor(units, device=dev)
-        ulen_d = torch.as_tensor(ulen, device=dev)
-        st = msa.init_state(units_d, ulen_d)
-        sub, wdel, wl, wdel2, wl2 = msa.scores_step(st)
-        unit, qlen = units_d[:, 1].contiguous(), ulen_d[:, 1].contiguous()
-        args = (unit, qlen, st.ncol, sub, wl, wdel, wl2, wdel2, msa.costs, W)
-        rows = torch.arange(2 * T - 1, device=dev)[:, None]
-        live = rows < (qlen + st.ncol - 1)[None, :]      # [2T-1, B]
+        args, live = msa_round(rng, msa, T, W, B, L, dev)
+        unit, qlen, ncol, sub, wl, wdel, wl2, wdel2 = args[:8]
         label = f"T={T} W={W or 'full'} B={B}"
         # the work is the cells the data needs; a region writes one
         # direction byte per lane of its qlen + ncol - 1 rows, dead lanes 0
         dp_ops = (OPS_PER_CELL["profile_dp " + ("banded" if W else "full")]
-                  * dp_cells(qlen, st.ncol, W))
-        dp_bytes = (_nbytes(unit, qlen, st.ncol, sub, wl, wdel, wl2, wdel2)
+                  * dp_cells(qlen, ncol, W))
+        dp_bytes = (_nbytes(unit, qlen, ncol, sub, wl, wdel, wl2, wdel2)
                     + float(live.sum()) * (W or T))
         # K3 (full width) and K4 (banded) are one entry point; every shape
-        # off the warp kernel's rungs is timed against the first version
-        off_rungs = W is None or T >= 4096 or W not in WARP_RUNGS
-        checks.run("profile_dp_full" if W is None else "profile_dp", label,
-                   lambda: MD.profile_dp(*args),
+        # off the warp kernel's route is timed against the first version,
+        # and every band of the 4096 bucket against the kernels of the
+        # routes profile_dp did not pick there
+        route = MD.dp_route(T, W)
+        beside = {}
+        if route != "warp":
+            beside["first_version"] = (
+                lambda: MD.profile_dp(*args, kernel="first"))
+        if T == 4096 and W in MD.BAND_WIDTHS:
+            for other in MD.DP_ROUTES:
+                if other != route:
+                    beside[other] = (lambda other=other: MD.profile_dp(
+                        *args, kernel=other))
+        kernel = ("profile_dp_full" if W is None else "profile_dp_band"
+                  if route == "band" else "profile_dp")
+        checks.run(kernel, label, lambda: MD.profile_dp(*args),
                    lambda: MD.profile_dp_plain(*args),
                    lambda: (dp_ops, dp_bytes),
-                   select=lambda d: (d[live],),
-                   first_fn=(lambda: MD.profile_dp(*args, first_version=True))
-                   if off_rungs else None)
+                   select=lambda d: (d[live],), beside=beside)
+        if (T, W, B, L) in DP_ONLY:
+            continue
         dirs = MD.profile_dp(*args)
-        bt = MD.profile_bt(dirs, qlen, st.ncol, T, W)
+        bt = MD.profile_bt(dirs, qlen, ncol, T, W)
         steps = float(bt[1].double().sum())   # path length, a byte a step
         checks.run("profile_bt", label,
-                   lambda: MD.profile_bt(dirs, qlen, st.ncol, T, W),
-                   lambda: MD.profile_bt_plain(dirs, qlen, st.ncol, T, W),
+                   lambda: MD.profile_bt(dirs, qlen, ncol, T, W),
+                   lambda: MD.profile_bt_plain(dirs, qlen, ncol, T, W),
                    lambda: (OPS_PER_CELL["profile_bt"] * steps,
-                            steps + _nbytes(qlen, st.ncol, *bt)))
+                            steps + _nbytes(qlen, ncol, *bt)))
+    if checks.wants("profile_dp"):
+        row_cost(dev, msa)
     if checks.wants("myers_hw"):
         check_myers(checks, dev, rng)
 
@@ -952,6 +1027,21 @@ class LaunchShapes:
                                                            x[0][1] or 0)))
 
 
+def check_band_route(shapes, routes, label):
+    """The run reached the 4096 bucket's W=256 (BAND_SHAPE) and
+    profile_dp launched the kernel of that shape's route there: fails
+    otherwise."""
+    from tidehunter_tpu_torch.ops import msa_device as MD
+
+    if not any((T, W) == BAND_SHAPE for T, W, _ in shapes.calls):
+        raise AssertionError(f"{label}: no profile_dp launch at T, W = "
+                             f"{BAND_SHAPE}")
+    route = MD.dp_route(*BAND_SHAPE)
+    if not routes.get(route):
+        raise AssertionError(f"{label}: profile_dp's {route} kernel, the "
+                             f"route of {BAND_SHAPE}, did not launch")
+
+
 def phase_periods(tmp, dev):
     """Short and long periods end to end (PERIOD_POPULATIONS): reads/s,
     stage timers and launches of the timed run, the profile_dp shapes it
@@ -987,6 +1077,7 @@ def phase_periods(tmp, dev):
         sync(dev)
         wall = time.perf_counter() - t0
     launches = {k: v for k, v in K.launches().items() if k in SLICE_KERNELS}
+    routes = dict(K.PROFILE_DP.routes)
     snap = METRICS.snapshot()
     full = int(snap.get("msa_full_rounds", 0))
     mix = ", ".join(f"{n} of {u} bp x {c}"
@@ -1000,11 +1091,11 @@ def phase_periods(tmp, dev):
     print("periods stages: " + " ".join(
         f"{k}={v}" for k, v in sorted(snap.items())), flush=True)
     print(f"periods profile_dp launches: {shapes.summary()}", flush=True)
+    print(f"periods profile_dp routes: {route_summary(shapes)}; launches "
+          f"by route {json.dumps(routes)}", flush=True)
     if full <= 0:
         raise AssertionError("the periods path ran no full-width round")
-    if not any(T == 4096 for T, _, _ in shapes.calls):
-        raise AssertionError("the periods path did not reach the 4096 "
-                             "bucket")
+    check_band_route(shapes, routes, "periods")
     idle = [k for k, v in launches.items() if v <= 0]
     if idle:
         raise AssertionError(f"kernels not launched by the periods path: "
@@ -1039,7 +1130,9 @@ def phase_periods(tmp, dev):
               f"records) byte-identical with tidehunter_core", flush=True)
     print(f"periods oracle: {len(check)} reads in {oracle_s:.1f} s over a "
           f"pool of host processes", flush=True)
-    return {**launches, "profile_dp_full": full}, (fa, sink.getvalue())
+    return ({**launches, "profile_dp_full": full,
+             "profile_dp_band": routes.get("band", 0)},
+            (fa, sink.getvalue()))
 
 
 # phase 6: (label, population, CLI arguments) of each option run
@@ -1799,16 +1892,6 @@ ACCURACY_RUNS = (("default", {}),
 ACCURACY_NEED = ("wf_global", "wf_ext", "profile_dp", "profile_bt")
 
 
-def dp_route(T, W) -> str:
-    """profile_dp's kernel at (T, W), as csrc/profile_dp.cu's entry point
-    picks it."""
-    if (W == 128 and T <= 4096) or (W in (256, 512) and T < 4096):
-        return "warp"
-    if T == 4096 and W == 256:
-        return "first version"
-    return "strips"
-
-
 class SeedRoutes:
     """Records, while active, the route of every seed_hits launch (one
     CTA, a cluster of C or the global scratch), as csrc/seed_hits.cu's
@@ -1856,9 +1939,11 @@ def route_summary(shapes) -> str:
     """profile_dp's launches by route and (T, W), K3's full-width ones
     among them, and wf_global's largest (LQ, LT) with their launches and
     largest B, from a LaunchShapes."""
+    from tidehunter_tpu_torch.ops import msa_device as MD
+
     dp = {}
     for T, W, B in shapes.calls:
-        key = (dp_route(T, W), T, W)
+        key = (MD.dp_route(T, W), T, W)
         n, hi = dp.get(key, (0, 0))
         dp[key] = (n + 1, max(hi, B))
     glob = {}
@@ -1929,6 +2014,7 @@ def phase_corpus(tmp, dev):
                                     sync=lambda: sync(dev))
                 wall = time.perf_counter() - t0
             got = {k: v for k, v in K.launches().items() if v}
+            routes = dict(K.PROFILE_DP.routes)
             snap = METRICS.snapshot()
             n_reads = A.DIGEST_READS * len(configs)
             print(f"accuracy {label}: {n_reads} reads in {wall:.3f} s; "
@@ -1937,8 +2023,10 @@ def phase_corpus(tmp, dev):
                   f"{int(snap.get('msa_full_rounds', 0))}, regions past "
                   f"the largest bucket (host rule) "
                   f"{int(snap.get('msa_host_oversize', 0))}", flush=True)
-            print(f"accuracy {label} routes: {route_summary(shapes)}",
+            print(f"accuracy {label} routes: {route_summary(shapes)}; "
+                  f"profile_dp launches by route {json.dumps(routes)}",
                   flush=True)
+            check_band_route(shapes, routes, f"accuracy {label}")
             if seeds.routes:
                 print(f"accuracy {label} seed_hits routes: "
                       f"{seeds.summary()}", flush=True)
@@ -2052,6 +2140,10 @@ KERNEL_META = {
                    "tidehunter_tpu/ops/msa_device.py:256"),
     "profile_dp_full": ("tidehunter_tpu_torch/csrc/profile_dp.cu",
                         "tidehunter_tpu/ops/msa_device.py:87"),
+    # the band route of profile_dp (launches: the periods path's, where
+    # the 4096 bucket's W=256 rounds reach it)
+    "profile_dp_band": ("tidehunter_tpu_torch/csrc/profile_dp.cu",
+                        "tidehunter_tpu/ops/msa_device.py:256"),
     "profile_bt": ("tidehunter_tpu_torch/csrc/profile_bt.cu",
                    "tidehunter_tpu/ops/msa_device.py:479"),
     "wf_dtype_probe": ("tidehunter_tpu_torch/csrc/wf_dtype_probe.cu",
@@ -2134,6 +2226,7 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         period_launches, periods_run = phase_periods(tmp, dev)
         launches["profile_dp_full"] = period_launches["profile_dp_full"]
+        launches["profile_dp_band"] = period_launches["profile_dp_band"]
         print(f"periods phase: {time.perf_counter() - t0:.1f} s", flush=True)
         t0 = time.perf_counter()
         launches["myers_hw"], largest = phase_options(tmp, dev)
@@ -2171,7 +2264,8 @@ def main(argv=None) -> int:
                      # bit-parallel edit-distance search or the chain DP;
                      # seed_hits' is torch.sort over its seed words
                      "library_ms": row.get("library_ms")})
-        for extra in ("variants_ms", "first_version_ms", "walk"):
+        for extra in ("variants_ms", "first_version_ms", "warp_ms",
+                      "strips_ms", "band_ms", "walk"):
             if extra in row:
                 rows[-1][extra] = row[extra]
     print(json.dumps({"kernels": rows}))

@@ -16,7 +16,13 @@
 // filled with 0x5A bytes when that CTA's last thread exits; between two
 // cluster barriers the CTA of rank 0 runs before the others, so that a
 // read of its shared memory after it exited, which CUDA forbids, shows
-// every time.  The SM count
+// every time.  Hopper's bulk copy (csrc/bulk_copy.cuh: mbar_init,
+// mbar_fence_init, mbar_arrive_expect_tx, bulk_g2s, mbar_wait) keeps each
+// mbarrier's state (arrivals and bytes still due, its phase) beside it and
+// copies at once; a copy that is not whole 16-byte pieces at 16-byte
+// aligned addresses, a wait on a barrier never initialised, or a wait that
+// a phase would never complete (arrivals or bytes short) aborts, where the
+// card would fault or hang.  The SM count
 // a program reads is $CUDA_SHIM_SMS (default 132), so that a test can steer
 // a launcher's choice of cluster or of lanes a problem, and the opt-in shared memory a block may
 // use is $CUDA_SHIM_SMEM (default 232448, sm_90's), so that a test can
@@ -28,15 +34,19 @@
 #include <cstdint>
 #include <cstdlib>
 #include <cstring>
+#include <chrono>
+#include <cstdio>
 #include <memory>
+#include <mutex>
 #include <thread>
+#include <unordered_map>
 #include <vector>
 
 #define __global__
 #define __device__
 #define __host__
 #define __forceinline__ inline
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 #define __restrict__
 
 using std::max;
@@ -235,6 +245,72 @@ inline void __pipeline_memcpy_async(void* dst, const void* src, size_t n) {
 }
 inline void __pipeline_commit() {}
 inline void __pipeline_wait_prior(size_t) {}
+
+// Hopper's bulk copy and its transaction-count mbarrier (bulk_copy.cuh)
+struct ShimMbar {
+  int count, pending;               // arrivals a phase, still due
+  long long tx;                     // bytes announced and not yet copied
+  unsigned phase;                   // the parity of the current phase
+};
+inline std::mutex shim_mbar_mu;
+inline std::unordered_map<const void*, ShimMbar> shim_mbars;
+inline int shim_mbar_inits = 0;     // mbar_init calls, for a test to read
+
+[[noreturn]] inline void shim_abort(const char* what) {
+  std::fprintf(stderr, "cuda_shim: %s\n", what);
+  std::abort();
+}
+inline ShimMbar& shim_mbar(const void* bar) {   // under shim_mbar_mu
+  auto it = shim_mbars.find(bar);
+  if (it == shim_mbars.end()) shim_abort("mbarrier used before mbar_init");
+  return it->second;
+}
+inline void shim_mbar_step(ShimMbar& m) {        // a phase completes
+  if (m.pending == 0 && m.tx == 0) {
+    m.phase ^= 1u;
+    m.pending = m.count;
+  }
+}
+inline void mbar_init(uint64_t* bar, unsigned count) {
+  std::lock_guard<std::mutex> g(shim_mbar_mu);
+  shim_mbars[bar] = ShimMbar{(int)count, (int)count, 0, 0};
+  ++shim_mbar_inits;
+}
+inline void mbar_fence_init() {}
+inline void mbar_arrive_expect_tx(uint64_t* bar, unsigned bytes) {
+  std::lock_guard<std::mutex> g(shim_mbar_mu);
+  ShimMbar& m = shim_mbar(bar);
+  m.tx += bytes;
+  --m.pending;
+  shim_mbar_step(m);
+}
+inline void bulk_g2s(void* dst, const void* src, unsigned bytes,
+                     uint64_t* bar) {
+  if ((((uintptr_t)dst | (uintptr_t)src) & 15) || bytes % 16 || !bytes)
+    shim_abort("bulk copy of a size or at an address not 16-byte whole");
+  std::memcpy(dst, src, bytes);
+  std::lock_guard<std::mutex> g(shim_mbar_mu);
+  ShimMbar& m = shim_mbar(bar);
+  m.tx -= bytes;
+  shim_mbar_step(m);
+}
+// the phase of parity `parity` completes when the current phase has the
+// other parity; a wait that lasts $CUDA_SHIM_WAIT_S seconds (default 20)
+// would hang on the card
+inline void mbar_wait(uint64_t* bar, unsigned parity) {
+  const char* env = std::getenv("CUDA_SHIM_WAIT_S");
+  const auto limit = std::chrono::seconds(env ? std::atoi(env) : 20);
+  const auto t0 = std::chrono::steady_clock::now();
+  for (;;) {
+    {
+      std::lock_guard<std::mutex> g(shim_mbar_mu);
+      if (shim_mbar(bar).phase != (parity & 1u)) return;
+    }
+    if (std::chrono::steady_clock::now() - t0 > limit)
+      shim_abort("mbar_wait: the phase never completes");
+    std::this_thread::yield();
+  }
+}
 
 template <class T> inline T __ldg(const T* p) { return *p; }
 inline int __viaddmax_s32(int a, int b, int c) { return max(a + b, c); }

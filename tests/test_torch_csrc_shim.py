@@ -1,15 +1,17 @@
 """The port's CUDA sources for the redesigned kernels, run on the CPU.
 
 csrc/wavefront.cu (``wf_global``, ``wf_ext``), csrc/profile_dp.cu
-(``profile_dp``: its warp kernel and its strips, one CTA or a cluster a
-region; ``profile_dp_first``, the first version), csrc/profile_bt.cu
+(``profile_dp``: its warp kernel, its band kernel and its strips, one CTA
+or a cluster a region; ``profile_dp_first``, the first version;
+``profile_dp_on``, a route's kernel at any shape), csrc/profile_bt.cu
 (``profile_bt``), csrc/myers_hw.cu (``myers_hw``), csrc/seed_hits.cu
 (``seed_hits``: shared-memory and global-scratch routes, 32- and 64-bit
 seed words) and csrc/chain_dp.cu (``chain_dp``) are compiled with the
 host's C++ compiler over tests/cuda_shim.h, which emulates the CUDA subset
 they use (threads, warp shuffles and ballots, barriers, shared memory,
-cp.async copies, thread-block clusters and their distributed shared
-memory, the DPX intrinsics), and called
+cp.async copies, Hopper's bulk copies and their mbarriers, thread-block
+clusters and their distributed shared memory, the DPX intrinsics), and
+called
 through the same C entry points and argument lists that _kernels.py
 binds.  Every output must equal the port's plain version exactly.  This
 runs the kernels' own index arithmetic, shuffles, tiles and epilogues
@@ -18,9 +20,11 @@ the card (chip_smoke.py).
 """
 
 import ctypes
+import os
 import re
 import shutil
 import subprocess
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -51,6 +55,7 @@ def _translate(src: str) -> str:
     src = src.replace("#include <cuda_runtime.h>", '#include "cuda_shim.h"')
     src = src.replace("#include <cuda_pipeline.h>", "")
     src = src.replace("#include <cooperative_groups.h>", "")
+    src = src.replace('#include "bulk_copy.cuh"', "")
     src = re.sub(r"extern __shared__ (\w+) (\w+)\[\];",
                  r"\1* \2 = (\1*)shim_smem;", src)
     return re.sub(r"([\w:]+(?:<[\w, ]+>)?)\s*<<<(.*?)>>>\s*\(",
@@ -67,7 +72,11 @@ def lib(tmp_path_factory):
     probe = out / "shim_probe.cpp"
     probe.write_text('#include "cuda_shim.h"\n'
                      'extern "C" int shim_last_cluster() '
-                     '{ return shim_cluster_size; }\n')
+                     '{ return shim_cluster_size; }\n'
+                     'extern "C" int shim_take_mbars() { std::lock_guard<'
+                     'std::mutex> g(shim_mbar_mu); const int n = '
+                     'shim_mbar_inits; shim_mbar_inits = 0; '
+                     'return n; }\n')
     cpps = [str(probe)]
     for name in SOURCES:
         cpp = out / f"{name}.cpp"
@@ -79,7 +88,8 @@ def lib(tmp_path_factory):
     dll = ctypes.CDLL(str(so))
     fns = {}
     for k in (K.WF_GLOBAL, K.WF_EXT, K.PROFILE_DP, K.PROFILE_DP_FIRST,
-              K.PROFILE_BT, K.MYERS_HW, K.SEED_HITS, K.CHAIN_DP):
+              K.PROFILE_DP_ON, K.PROFILE_BT, K.MYERS_HW, K.SEED_HITS,
+              K.CHAIN_DP):
         fn = getattr(dll, k.name)
         fn.argtypes = [*k.argtypes, ctypes.c_void_p]
         fn.restype = ctypes.c_int
@@ -94,6 +104,9 @@ def lib(tmp_path_factory):
     fns["myers_hw_lanes"] = dll.myers_hw_lanes
     fns["myers_hw_lanes"].argtypes = [ctypes.c_int]
     fns["shim_last_cluster"] = dll.shim_last_cluster
+    fns["shim_take_mbars"] = dll.shim_take_mbars
+    fns["profile_dp_route"] = dll.profile_dp_route
+    fns["profile_dp_route"].argtypes = [ctypes.c_int] * 2
     return fns
 
 
@@ -163,15 +176,16 @@ def _dp_round(rng, T, B, lens):
     return [a.contiguous().numpy() for a in args], msa.costs, args
 
 
-def _dp_check(lib, entry, T, W, B, lens, seed, *extra):
-    """The entry point's plane equals profile_dp_plain's on every row a
-    region writes (dead lanes 0), and rows past qlen + ncol - 1 stay
-    untouched."""
+def _dp_check(lib, entry, T, W, B, lens, seed, *extra, route=None):
+    """The entry point's plane (profile_dp_on's with a route) equals
+    profile_dp_plain's on every row a region writes (dead lanes 0), and
+    rows past qlen + ncol - 1 stay untouched."""
     (unit, qlen, ncol, sub, wl, wdel, wl2, wdel2), costs, targs = _dp_round(
         np.random.default_rng(seed), T, B, lens)
     want = TMD.profile_dp_plain(*targs, costs, W).numpy()
     dirs = np.full((2 * T - 1, B, W or T), 0x77, np.uint8)
-    rc = lib[entry](_p(unit), T, _p(sub), _p(wl), _p(wdel), _p(wl2),
+    head = () if route is None else (TMD.DP_ROUTES.index(route),)
+    rc = lib[entry](*head, _p(unit), T, _p(sub), _p(wl), _p(wdel), _p(wl2),
                     _p(wdel2), _p(qlen), _p(ncol), B, T, W or 0, *costs,
                     _p(dirs), *extra, None)
     assert rc == 0
@@ -218,6 +232,79 @@ def test_profile_dp_first_version_matches_plain(lib):
     for T, W in ((160, None), (192, 136)):
         _dp_check(lib, "profile_dp_first", T, W, 2, [(70, 77), (150, 150)],
                   T)
+
+
+# (T, W): the band kernel on 4, 8 and 16 warps at every width the profile
+# allows; T = 298 is not whole 16-byte pieces a plane, so its profile
+# comes by plain loads, not bulk copies
+@pytest.mark.parametrize("T,W", [
+    (300, 128), (300, 256), (640, 128), (640, 256), (640, 512),
+    (1024, 128), (1024, 256), (1024, 512), (298, 128)])
+def test_profile_dp_band_source_matches_plain(lib, T, W):
+    """The band kernel (one band lane a thread over W / 32 warps, edge
+    words through shared memory, the profile by bulk copies) equals the
+    plain version on every live row: uneven pairs, a unit longer than the
+    profile, a one-base unit, and long pairs (qlen + ncol > 2W) whose
+    window slides across every warp edge, up to T = 640 to the T - W
+    clamp (at T = 1024 the shim's run of ~2000 rows would take most of
+    the file's time)."""
+    n = T - 3 if T < 1024 else 5 * T // 8
+    # a long pair, then by turns a unit longer than the profile, a
+    # one-base unit and an uneven short pair
+    lens = [(n + 3, n) if W % 256 else (n, n + 3),
+            [(n // 2, T), (1, T // 2),
+             (T // 2, T // 2 + 9)][(T // 100 + W // 128) % 3]]
+    B = len(lens)
+    rows = max(a + b for a, b in lens) - 1
+    assert rows > 2 * W + 8
+    if T < 1024:
+        assert rows - 1 >= 2 * (T - W) + W - 8 + 4
+    lib["shim_take_mbars"]()
+    _dp_check(lib, "profile_dp_on", T, W, B, lens, T + W, route="band")
+    # the bulk route initialises one mbarrier a chunk of 256 columns
+    assert lib["shim_take_mbars"]() == (0 if T % 4 else -(-T // 256) * B)
+
+
+def test_profile_dp_routes_match_python(lib):
+    """The entry point's dp_route (the host query profile_dp_route) is
+    msa_device.dp_route on every bucket and band width."""
+    for T in TMD.BUCKETS:
+        for W in (None, 128, 136, 256, 512):
+            got = TMD.DP_ROUTES[lib["profile_dp_route"](T, W or 0)]
+            assert got == TMD.dp_route(T, W), (T, W)
+
+
+@pytest.mark.parametrize("route", ["strips", "warp", "band"])
+def test_profile_dp_on_runs_each_route(lib, route):
+    """profile_dp_on runs the named route's kernel wherever the route does
+    not take the shape: all three equal the plain version at T = 640, W =
+    256 (the warp kernel's rung) and at the 4096 bucket's W = 128."""
+    _dp_check(lib, "profile_dp_on", 640, 256, 2, [(300, 310), (5, 200)], 3,
+              route=route)
+    _dp_check(lib, "profile_dp_on", 4096, 128, 1, [(70, 90)], 4,
+              route=route)
+
+
+def test_profile_dp_on_refuses_what_no_kernel_takes(lib):
+    """A band width the warp and band kernels lack, a window as wide as
+    the profile, a wide profile and an unknown route: refused before any
+    access."""
+    one = np.ones(1, np.int32)
+    args = (_p(np.zeros(1, np.uint8)), 1, *(_p(one),) * 7, 1)
+    for route, T, W in ((1, 640, 136), (2, 640, 136), (2, 256, 256),
+                        (0, 4097, 0), (3, 640, 256)):
+        assert lib["profile_dp_on"](route, *args, T, W, 4, 2, 4, 24, 1, 24,
+                                    _p(np.zeros(1, np.uint8)), None) == 1
+
+
+def test_profile_dp_band_route_at_4096(lib):
+    """profile_dp at the 4096 bucket's W = 256 launches the band kernel
+    (its bulk copies initialise 16 mbarriers a region) and equals the
+    plain version; short units keep the shim's run short."""
+    assert TMD.dp_route(4096, 256) == "band"
+    lib["shim_take_mbars"]()
+    _dp_check(lib, "profile_dp", 4096, 256, 2, [(150, 160), (90, 60)], 11)
+    assert lib["shim_take_mbars"]() == 2 * 16
 
 
 @pytest.mark.parametrize("entry", ["profile_dp", "profile_dp_first"])
@@ -705,19 +792,94 @@ extern "C" int swap(int* out, int last_sync) {
 '''
 
 
-@pytest.mark.parametrize("last_sync", [True, False])
-def test_shim_poisons_an_exited_cluster_cta(tmp_path, last_sync):
+# csrc/bulk_copy.cuh's protocol on three chunks: thread 0 announces and
+# copies them (the last after a pause, so that the other threads wait on
+# it), every thread waits for each chunk and copies it out; `mode` breaks
+# one rule: more bytes announced than copied (a wait that never ends), a
+# copy of 8 bytes, a wait on a barrier never initialised
+SHIM_BULK_SRC = r'''
+#include <cuda_runtime.h>
+#include <stdint.h>
+#include "bulk_copy.cuh"
+__global__ void bulk_kernel(const int* src, int* out, int mode) {
+  extern __shared__ int4 bulk_s[];
+  int* buf = reinterpret_cast<int*>(bulk_s);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(buf + 96);
+  if (threadIdx.x == 0) {
+    for (int c = 0; c < 3; ++c)
+      if (mode != 3 || c < 2) mbar_init(bars + c, 1);
+    mbar_fence_init();
+    for (int c = 0; c < 3; ++c) {
+      if (c == 2) std::this_thread::sleep_for(std::chrono::milliseconds(50));
+      if (mode == 3 && c == 2) break;
+      const unsigned n = mode == 2 && c == 1 ? 8 : 128;
+      mbar_arrive_expect_tx(bars + c, mode == 1 && c == 1 ? 256 : n);
+      bulk_g2s(buf + 32 * c, src + 32 * c, n, bars + c);
+    }
+  }
+  __syncthreads();
+  for (int c = 0; c < 3; ++c) {
+    mbar_wait(bars + c, 0);
+    out[96 * threadIdx.x + 32 * c + threadIdx.x % 32] =
+        buf[32 * c + threadIdx.x % 32];
+  }
+}
+extern "C" int bulk(const int* src, int* out, int mode) {
+  bulk_kernel<<<1, 64, 96 * 4 + 3 * 8, nullptr>>>(src, out, mode);
+  return cudaGetLastError();
+}
+'''
+
+
+def _shim_lib(tmp_path, name, src):
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("no C++ compiler on this host")
     shutil.copy(Path(__file__).with_name("cuda_shim.h"), tmp_path)
-    cpp = tmp_path / "swap.cpp"
-    cpp.write_text(_translate(SHIM_EXIT_SRC))
-    so = tmp_path / "libswap.so"
+    cpp = tmp_path / f"{name}.cpp"
+    cpp.write_text(_translate(src))
+    so = tmp_path / f"lib{name}.so"
     subprocess.run([cxx, "-std=c++20", "-O1", "-fPIC", "-shared", "-pthread",
                     "-I", str(tmp_path), "-o", str(so), str(cpp)],
                    check=True)
-    fn = ctypes.CDLL(str(so)).swap
+    return so
+
+
+def test_shim_bulk_copy_lands_before_waits_return(tmp_path):
+    fn = ctypes.CDLL(str(_shim_lib(tmp_path, "bulk", SHIM_BULK_SRC))).bulk
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+    src = np.arange(96, dtype=np.int32) * 7 + 3
+    out = np.zeros(64 * 96, np.int32)
+    assert fn(src.ctypes.data, out.ctypes.data, 0) == 0
+    for t in range(64):
+        for c in range(3):
+            assert out[96 * t + 32 * c + t % 32] == src[32 * c + t % 32]
+
+
+@pytest.mark.parametrize("mode,msg", [
+    (1, "the phase never completes"), (2, "16-byte whole"),
+    (3, "before mbar_init")], ids=["bytes_short", "eight_bytes",
+                                   "uninitialised"])
+def test_shim_bulk_copy_refuses_what_the_card_would(tmp_path, mode, msg):
+    """Each broken rule aborts the process (the card would fault or
+    hang), so it runs in a child process."""
+    so = _shim_lib(tmp_path, "bulk", SHIM_BULK_SRC)
+    code = ("import ctypes, numpy as np\n"
+            f"fn = ctypes.CDLL({str(so)!r}).bulk\n"
+            "fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]\n"
+            "src = np.arange(96, dtype=np.int32)\n"
+            "out = np.zeros(64 * 96, np.int32)\n"
+            f"fn(src.ctypes.data, out.ctypes.data, {mode})\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120,
+                         env={**os.environ, "CUDA_SHIM_WAIT_S": "1"})
+    assert res.returncode != 0
+    assert msg in res.stderr
+
+
+@pytest.mark.parametrize("last_sync", [True, False])
+def test_shim_poisons_an_exited_cluster_cta(tmp_path, last_sync):
+    fn = ctypes.CDLL(str(_shim_lib(tmp_path, "swap", SHIM_EXIT_SRC))).swap
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int]
     out = np.zeros(2, np.int32)
     for _ in range(20):

@@ -230,24 +230,83 @@ def _shift_left(x):
     return np.concatenate([prv[:, :, None], x[:, :, :-1]], axis=2)
 
 
+def _dp_cells(r, base, W, T, unit, qlen, ncol, sub, wl, wdel, wl2, wdel2,
+              costs, h1, h2, e1, e2, f1, f2, g):
+    """Row r of the band window [base, base + W) from row r's views of
+    rows r-1 and r-2 ([nb, W] each): (direction bytes with dead lanes 0,
+    new H, E1, E2, F1, F2, G), the cell arithmetic of csrc/profile_dp.cu's
+    warp and band kernels."""
+    oi, ei, od, oi2, ei2, od2 = (int(c) for c in costs)
+    nb = wl.shape[0]
+    wb = W - 8
+    Lq, Tn = qlen[:, None].astype(np.int64), ncol[:, None].astype(np.int64)
+    rows = np.arange(nb)[:, None]
+
+    def ins0(g):
+        return max(-(oi + g * ei), -(oi2 + g * ei2))
+
+    ti = base + np.arange(W)[None, :]
+    jq = r - ti
+    off = 2 * ti - r
+    live = (jq >= 0) & (jq < Lq) & (ti < Tn) & (np.abs(off) <= wb)
+    m_up = np.abs(off + 1) <= wb
+    m_dl = np.abs(off - 1) <= wb
+    tc = np.minimum(ti, T - 1)
+    qb = unit[rows, np.clip(jq, 0, unit.shape[1] - 1)].astype(np.int64)
+    s = np.where(live, sub[rows, np.minimum(qb, 4), tc], 0)
+    wl_t = np.where(live, wl[rows, tc], 0)
+    wl2_t = np.where(live, wl2[rows, tc], 0)
+    wd = np.where(live, wdel[rows, tc], 0)
+    wd2 = np.where(live, wdel2[rows, tc], 0)
+    sh = np.maximum(ti - 1, 0)
+    wl_sh = np.where(live & (ti > 0), wl[rows, sh], 0)
+    wl2_sh = np.where(live & (ti > 0), wl2[rows, sh], 0)
+
+    hm = np.where(ti == r,
+                  np.where(ti == 0, 0, np.maximum(-(od + wl_sh),
+                                                  -(od2 + wl2_sh))),
+                  np.where(ti == 0, ins0(r), h2))
+    M = hm + s
+    h_up = np.where(ti == r, np.maximum(-(od + wl_t), -(od2 + wl2_t)), h1)
+    h_up = np.where(m_up, h_up, TMD.NEG)
+    e_fresh = (ti == r) | ~m_up
+    e_cont = np.where(e_fresh, TMD.NEG, e1) - ei
+    nE1 = np.maximum(h_up - oi - ei, e_cont)
+    icont1 = e_cont > h_up - oi - ei
+    e2_cont = np.where(e_fresh, TMD.NEG, e2) - ei2
+    nE2 = np.maximum(h_up - oi2 - ei2, e2_cont)
+    icont2 = e2_cont > h_up - oi2 - ei2
+    E = np.maximum(nE1, nE2)
+    isel2 = nE2 > nE1
+    g_sh = np.where(m_dl, np.where(ti == 0, ins0(r + 1), g), TMD.NEG)
+    f_fresh = (ti == 0) | ~m_dl
+    f_sh = np.where(f_fresh, TMD.NEG, f1)
+    nF1 = np.maximum(g_sh - od, f_sh) - wd
+    fcont1 = f_sh >= g_sh - od
+    f2_sh = np.where(f_fresh, TMD.NEG, f2)
+    nF2 = np.maximum(g_sh - od2, f2_sh) - wd2
+    fcont2 = f2_sh >= g_sh - od2
+    F = np.maximum(nF1, nF2)
+    fsel2 = nF2 > nF1
+    nG = np.maximum(M, E)
+    sel = np.where(F > nG, 2, np.where(E > M, 1, 0))
+    d = (sel | (icont1 << 2) | (fcont1 << 3) | (isel2 << 4)
+         | (fsel2 << 5) | (icont2 << 6) | (fcont2 << 7))
+    return (np.where(live, d, 0).astype(np.uint8), np.maximum(nG, F), nE1,
+            nE2, nF1, nF2, nG)
+
+
 def profile_dp_model(unit, qlen, ncol, sub, wl, wdel, wl2, wdel2, costs, W):
     """Direction plane [2T-1, B, W] by profile_dp_warp's register window:
     lane k holds band lanes [k L, k L + L), L = W / 32; per row the state
     of row r-1 shifts right by one when band_base steps (the view at t),
     else rows r-1 and r-2 shift left by one (the view at t-1)."""
-    oi, ei, od, oi2, ei2, od2 = (int(c) for c in costs)
     nb, T = wl.shape
     L = W // LANES
-    wb = W - 8
-    Lq, Tn = qlen[:, None].astype(np.int64), ncol[:, None].astype(np.int64)
-    nrows = Lq[:, 0] + Tn[:, 0] - 1
+    nrows = qlen.astype(np.int64) + ncol - 1
     dirs = np.zeros((2 * T - 1, nb, W), np.uint8)
     neg = np.full((nb, LANES, L), TMD.NEG, np.int64)
     H1, H2, E1, E2, F1, F2, G = (neg.copy() for _ in range(7))
-    rows = np.arange(nb)[:, None]
-
-    def ins0(g):
-        return max(-(oi + g * ei), -(oi2 + g * ei2))
 
     prev = 0
     for r in range(int(nrows.max())):
@@ -258,59 +317,94 @@ def profile_dp_model(unit, qlen, ncol, sub, wl, wdel, wl2, wdel2, costs, W):
             G, F1, F2, H2 = map(_shift_left, (G, F1, F2, H2))
         prev = base
         flat = [x.reshape(nb, W) for x in (H1, H2, E1, E2, F1, F2, G)]
-        h1, h2, e1, e2, f1, f2, g = flat
-        ti = base + np.arange(W)[None, :]
-        jq = r - ti
-        off = 2 * ti - r
-        live = (jq >= 0) & (jq < Lq) & (ti < Tn) & (np.abs(off) <= wb)
-        m_up = np.abs(off + 1) <= wb
-        m_dl = np.abs(off - 1) <= wb
-        tc = np.minimum(ti, T - 1)
-        qb = unit[rows, np.clip(jq, 0, unit.shape[1] - 1)].astype(np.int64)
-        s = np.where(live, sub[rows, np.minimum(qb, 4), tc], 0)
-        wl_t = np.where(live, wl[rows, tc], 0)
-        wl2_t = np.where(live, wl2[rows, tc], 0)
-        wd = np.where(live, wdel[rows, tc], 0)
-        wd2 = np.where(live, wdel2[rows, tc], 0)
-        sh = np.maximum(ti - 1, 0)
-        wl_sh = np.where(live & (ti > 0), wl[rows, sh], 0)
-        wl2_sh = np.where(live & (ti > 0), wl2[rows, sh], 0)
-
-        hm = np.where(ti == r,
-                      np.where(ti == 0, 0, np.maximum(-(od + wl_sh),
-                                                      -(od2 + wl2_sh))),
-                      np.where(ti == 0, ins0(r), h2))
-        M = hm + s
-        h_up = np.where(ti == r, np.maximum(-(od + wl_t), -(od2 + wl2_t)), h1)
-        h_up = np.where(m_up, h_up, TMD.NEG)
-        e_fresh = (ti == r) | ~m_up
-        e_cont = np.where(e_fresh, TMD.NEG, e1) - ei
-        nE1 = np.maximum(h_up - oi - ei, e_cont)
-        icont1 = e_cont > h_up - oi - ei
-        e2_cont = np.where(e_fresh, TMD.NEG, e2) - ei2
-        nE2 = np.maximum(h_up - oi2 - ei2, e2_cont)
-        icont2 = e2_cont > h_up - oi2 - ei2
-        E = np.maximum(nE1, nE2)
-        isel2 = nE2 > nE1
-        g_sh = np.where(m_dl, np.where(ti == 0, ins0(r + 1), g), TMD.NEG)
-        f_fresh = (ti == 0) | ~m_dl
-        f_sh = np.where(f_fresh, TMD.NEG, f1)
-        nF1 = np.maximum(g_sh - od, f_sh) - wd
-        fcont1 = f_sh >= g_sh - od
-        f2_sh = np.where(f_fresh, TMD.NEG, f2)
-        nF2 = np.maximum(g_sh - od2, f2_sh) - wd2
-        fcont2 = f2_sh >= g_sh - od2
-        F = np.maximum(nF1, nF2)
-        fsel2 = nF2 > nF1
-        nG = np.maximum(M, E)
-        sel = np.where(F > nG, 2, np.where(E > M, 1, 0))
-        d = (sel | (icont1 << 2) | (fcont1 << 3) | (isel2 << 4)
-             | (fsel2 << 5) | (icont2 << 6) | (fcont2 << 7))
+        d, *new = _dp_cells(r, base, W, T, unit, qlen, ncol, sub, wl, wdel,
+                            wl2, wdel2, costs, *flat)
         H2 = H1
-        H1, E1, E2, F1, F2, G = (x.reshape(nb, LANES, L) for x in (
-            np.maximum(nG, F), nE1, nE2, nF1, nF2, nG))
+        H1, E1, E2, F1, F2, G = (x.reshape(nb, LANES, L) for x in new)
         written = r < nrows
-        dirs[r, written] = np.where(live, d, 0)[written].astype(np.uint8)
+        dirs[r, written] = d[written]
+    return dirs
+
+
+def _warp_shift(x, step, edge):
+    """x [nb, NW, 32] moved one lane inside each warp: step (x[l] <-
+    x[l + 1], __shfl_down_sync) or not (x[l] <- x[l - 1], __shfl_up_sync);
+    the lane a shuffle leaves keeps its own value, and edge[w] (the
+    neighbour warp's word [nb], or None where warp w has none) replaces
+    it."""
+    if step:
+        out = np.concatenate([x[:, :, 1:], x[:, :, -1:]], axis=2)
+        k = -1
+    else:
+        out = np.concatenate([x[:, :, :1], x[:, :, :-1]], axis=2)
+        k = 0
+    for w, v in enumerate(edge):
+        if v is not None:
+            out[:, w, k] = v
+    return out
+
+
+def profile_dp_band_model(unit, qlen, ncol, sub, wl, wdel, wl2, wdel2,
+                          costs, W):
+    """Direction plane [2T-1, B, W] by profile_dp_band's schedule: NW = W
+    / 32 warps, band lane l on warp l // 32, lane l % 32, one cell a
+    lane.  Per row the state moves one lane inside each warp (a right
+    step: H1, E1, E2 down; else G, F1, F2, H2 up), and the lane at a
+    warp's edge takes its neighbour warp's word from the slot that warp
+    wrote after the row before: slots [2 rows][2 sides][NW], written at
+    row r into buffer r & 1 and read at row r + 1, with one barrier a row
+    between.  Asserts that every slot read holds row r - 1's words (row 0
+    reads the NEG the prologue wrote) and that no buffer is written in the
+    row that reads it."""
+    nb, T = wl.shape
+    NW = W // LANES
+    nrows = qlen.astype(np.int64) + ncol - 1
+    dirs = np.zeros((2 * T - 1, nb, W), np.uint8)
+    neg = np.full((nb, NW, LANES), TMD.NEG, np.int64)
+    H1, H2, E1, E2, F1, F2, G = (neg.copy() for _ in range(7))
+    # slot[buf][side][w]: (row written, [nb, 4] words); side 0 the first
+    # lane's H1, E1, E2, side 1 the last lane's H2, G, F1, F2
+    slot = [[[(-1, np.full((nb, 4), TMD.NEG, np.int64)) for _ in range(NW)]
+             for _ in range(2)] for _ in range(2)]
+
+    def take(buf, side, w, r):
+        row, v = slot[buf][side][w]
+        assert row == r - 1, (row, r)
+        return v
+
+    prev = 0
+    for r in range(int(nrows.max())):
+        base = TMD.band_base(r, T, W)
+        rb = (r - 1) & 1
+        if base != prev:
+            edge = [take(rb, 0, w + 1, r) if w + 1 < NW else None
+                    for w in range(NW)]
+            H1, E1, E2 = (_warp_shift(x, True, [
+                None if e is None else e[:, i] for e in edge])
+                for i, x in enumerate((H1, E1, E2)))
+        else:
+            edge = [take(rb, 1, w - 1, r) if w > 0 else None
+                    for w in range(NW)]
+            H2, G, F1, F2 = (_warp_shift(x, False, [
+                None if e is None else e[:, i] for e in edge])
+                for i, x in enumerate((H2, G, F1, F2)))
+        prev = base
+        flat = [x.reshape(nb, W) for x in (H1, H2, E1, E2, F1, F2, G)]
+        d, *new = _dp_cells(r, base, W, T, unit, qlen, ncol, sub, wl, wdel,
+                            wl2, wdel2, costs, *flat)
+        H2 = H1
+        H1, E1, E2, F1, F2, G = (x.reshape(nb, NW, LANES) for x in new)
+        written = r < nrows
+        dirs[r, written] = d[written]
+        wbuf = r & 1
+        assert wbuf != rb
+        for w in range(NW):
+            slot[wbuf][0][w] = (r, np.stack(
+                [H1[:, w, 0], E1[:, w, 0], E2[:, w, 0],
+                 np.zeros(nb, np.int64)], axis=1))
+            slot[wbuf][1][w] = (r, np.stack(
+                [H2[:, w, -1], G[:, w, -1], F1[:, w, -1], F2[:, w, -1]],
+                axis=1))
     return dirs
 
 
@@ -387,6 +481,43 @@ def test_profile_dp_window_matches_jax(monkeypatch):
      len0) = _round_inputs(5, T, lens)
     got = profile_dp_model(unit, qlen, ncol, sub, wl, wdel, wl2, wdel2,
                            costs, W)
+    jsub, jdirs = _jax_dirs(T, W, unit, qlen, ncol, unit0, len0)
+    np.testing.assert_array_equal(np.asarray(jsub), sub)
+    for b in range(B):
+        np.testing.assert_array_equal(_live(got, qlen, ncol, b),
+                                      _live(jdirs, qlen, ncol, b))
+
+
+@pytest.mark.parametrize("T,W", [(96, 64), (160, 64), (160, 96),
+                                 (200, 128)])
+def test_profile_dp_band_window_matches_plain(T, W):
+    # full-length pairs slide the window across every warp edge to the
+    # T - W clamp; short and uneven ones stay left of it
+    lens = [(T, T), (T - 3, T), (T, T - 5), (1, T // 2), (T // 2, 1),
+            (T // 3, T // 3 + 4), (T - 1, T - 9), (7, 9)]
+    unit, qlen, ncol, sub, wl, wdel, wl2, wdel2, costs, _, _ = \
+        _round_inputs(T + W + 1, T, lens)
+    assert max(qlen + ncol) - 2 >= 2 * (T - W) + W - 8 + 4   # clamp reached
+    got = profile_dp_band_model(unit, qlen, ncol, sub, wl, wdel, wl2, wdel2,
+                                costs, W)
+    want = TMD.profile_dp_plain(
+        *map(torch.from_numpy, (unit, qlen, ncol, sub, wl, wdel, wl2,
+                                wdel2)), costs, W).numpy()
+    for b in range(B):
+        np.testing.assert_array_equal(_live(got, qlen, ncol, b),
+                                      _live(want, qlen, ncol, b))
+
+
+def test_profile_dp_band_window_matches_jax(monkeypatch):
+    monkeypatch.setattr(MD, "INTERPRET", True)
+    monkeypatch.setattr(MD, "_B_CAP", B)
+    T, W = 256, 128
+    lens = [(200, 190), (180, 185), (250, 256), (1, 120), (140, 150),
+            (90, 60), (230, 240), (256, 256)]
+    (unit, qlen, ncol, sub, wl, wdel, wl2, wdel2, costs, unit0,
+     len0) = _round_inputs(5, T, lens)
+    got = profile_dp_band_model(unit, qlen, ncol, sub, wl, wdel, wl2, wdel2,
+                                costs, W)
     jsub, jdirs = _jax_dirs(T, W, unit, qlen, ncol, unit0, len0)
     np.testing.assert_array_equal(np.asarray(jsub), sub)
     for b in range(B):

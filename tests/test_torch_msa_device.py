@@ -178,3 +178,43 @@ def test_device_msa_defaults_to_the_card():
     Engine and Detector."""
     assert TMD.DeviceMSA(2, 4, 4, 2).device.type == "cuda"
     assert TMD.DeviceMSA(2, 4, 4, 2, device="cpu").device.type == "cpu"
+
+
+def test_dp_route_by_shape():
+    """profile_dp's kernel by shape: the band kernel on the 4096 bucket's
+    band rungs, the warp kernel on the rungs below, the strips at full
+    width and on any other W."""
+    for T in TMD.BUCKETS:
+        for W in TMD.BAND_WIDTHS:
+            want = "band" if T == 4096 else "warp"
+            assert TMD.dp_route(T, W) == want, (T, W)
+        assert TMD.dp_route(T, None) == "strips"
+        assert TMD.dp_route(T, 136) == "strips"
+
+
+@pytest.mark.parametrize("kernel", [None, "first", "strips", "warp", "band"])
+def test_profile_dp_kernel_option_on_the_cpu(kernel):
+    """Every kernel a caller may name runs the plain version on a CPU
+    tensor and gives its plane; a kernel the shape lacks, or an unknown
+    one, is refused."""
+    T, W, B = 320, 128, 2
+    rng = np.random.default_rng(5)
+    units = np.full((B, 2, T), 4, np.uint8)
+    ulen = np.array([[200, 190], [60, 75]], np.int32)
+    for b in range(B):
+        for k in range(2):
+            units[b, k, :ulen[b, k]] = rng.integers(0, 4, ulen[b, k])
+    tm = TMD.DeviceMSA(2, 4, 4, 2, device="cpu")
+    st = tm.init_state(torch.from_numpy(units), torch.from_numpy(ulen))
+    sub, wdel, wl, wdel2, wl2 = tm.scores_step(st)
+    args = (torch.from_numpy(units[:, 1].copy()),
+            torch.from_numpy(ulen[:, 1].copy()), st.ncol, sub, wl, wdel,
+            wl2, wdel2, tm.costs)
+    want = TMD.profile_dp_plain(*args, W)
+    got = TMD.profile_dp(*args, W=W, kernel=kernel)
+    assert torch.equal(got, want)
+    if kernel in ("warp", "band"):
+        with pytest.raises(ValueError):
+            TMD.profile_dp(*args, W=136, kernel=kernel)
+    with pytest.raises(ValueError):
+        TMD.profile_dp(*args, W=W, kernel="lanes")

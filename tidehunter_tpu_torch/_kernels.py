@@ -132,13 +132,16 @@ class Kernel:
         self.name = name
         self.argtypes = argtypes
         self.launches = 0
+        self.routes = {}        # launches by route, where the caller names it
         self._fn = None
         self._count = threading.Lock()
 
-    def __call__(self, device, *args) -> None:
+    def __call__(self, device, *args, route: Optional[str] = None) -> None:
         """Launch on `device` (the card of the pointer arguments, which the
         wrapper has checked share one device) with that device's current
-        stream: the thread's current device may be another card."""
+        stream: the thread's current device may be another card.  `route`
+        names the kernel an entry point that picks one by shape launched,
+        and counts the launch under it too."""
         import torch
 
         if self._fn is None:
@@ -154,6 +157,8 @@ class Kernel:
             raise RuntimeError(f"{self.name}: CUDA error {rc} ({msg})")
         with self._count:
             self.launches += 1
+            if route is not None:
+                self.routes[route] = self.routes.get(route, 0) + 1
 
 
 def host_call(name: str, argtypes: list, restype, *args):
@@ -171,8 +176,10 @@ WF_EXT = Kernel("wf_ext", [P, I, P, I, P, P, I, I, I, I, I, I, P])
 # csrc/profile_dp.cu
 PROFILE_DP = Kernel("profile_dp", [P, I, P, P, P, P, P, P, P, I, I, I,
                                    I, I, I, I, I, I, P])
-# the first version, the yardstick the routes are timed against
+# the first version, and a route's kernel at any shape it takes: the
+# yardsticks the routes are timed against
 PROFILE_DP_FIRST = Kernel("profile_dp_first", PROFILE_DP.argtypes)
+PROFILE_DP_ON = Kernel("profile_dp_on", [I, *PROFILE_DP.argtypes])
 # csrc/profile_bt.cu
 PROFILE_BT = Kernel("profile_bt", [P, I, I, I, P, P, I, P, P, P])
 # csrc/wf_dtype_probe.cu
@@ -185,13 +192,15 @@ SEED_HITS = Kernel("seed_hits", [P, P, I, I, I, I, I, I, I, I, I, I, I, P,
 # csrc/chain_dp.cu
 CHAIN_DP = Kernel("chain_dp", [P, P, P, I, I, I, I, P, P, P])
 
-KERNELS = (WF_GLOBAL, WF_EXT, PROFILE_DP, PROFILE_DP_FIRST, PROFILE_BT,
+KERNELS = (WF_GLOBAL, WF_EXT, PROFILE_DP, PROFILE_DP_FIRST,
+           PROFILE_DP_ON, PROFILE_BT,
            WF_DTYPE_PROBE, MYERS_HW, SEED_HITS, CHAIN_DP)
 
 
 def reset_launches() -> None:
     for k in KERNELS:
         k.launches = 0
+        k.routes = {}
 
 
 def launches() -> dict:

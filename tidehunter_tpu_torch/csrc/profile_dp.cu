@@ -16,10 +16,11 @@
 // boundary values), and every live cell of a row lies at least two lanes
 // inside its band window.
 //
-// Three kernels, chosen by shape in profile_dp():
+// Three kernels, chosen by shape in profile_dp() (dp_route), and the first
+// version:
 //
-// profile_dp_warp (banded, W = 128, 256, 512 in buckets T < 4096, and W = 128
-// in the 4096 bucket): one warp per region, DP_WARPS regions a CTA.  Lane k
+// profile_dp_warp (banded, W = 128, 256, 512 in buckets T < 4096): one
+// warp per region, DP_WARPS regions a CTA.  Lane k
 // holds the window's band lanes [k L, k L + L), L = W / 32, in registers: H of
 // rows r-1 and r-2 and E1, E2, F1, F2, G of row r-1, all in row r-1's window,
 // and the unit codes of row r's cells.  band_base steps by 0 or 1 a row, the
@@ -33,8 +34,17 @@
 // shared-memory ring, 32 columns at a time (measured faster than reading it
 // through __ldg: PERF.md, PR 3).
 //
-// profile_dp_strip (full width at every T, the 4096 bucket's W = 512,
-// any other W): warps own fixed column strips.  Over absolute columns a
+// profile_dp_band (W = 128, 256, 512 in the 4096 bucket): one region a
+// CTA of W / 32 warps, one band lane a thread, the state in registers and
+// shifted as profile_dp_warp shifts it, a warp's edge words through
+// shared memory, one barrier a row; the profile in shared memory by bulk
+// copies (bulk_copy.cuh), no global load in the row loop.  The 4096
+// bucket's regions (3000 bp units, ~6000 rows) come a few a launch, so a
+// region's row has to be short: W / 32 warps split it where the warp
+// kernel ran it on one (PERF.md).
+//
+// profile_dp_strip (full width at every T, any other W): warps own fixed
+// column strips.  Over absolute columns a
 // cell reads only columns t and t-1 of rows r-1 and r-2, so the
 // dependencies run left only, inside a band too, and no state ever
 // shifts.  Warp w owns columns [32 L w, 32 L (w + 1)), lane k of it the L
@@ -62,25 +72,29 @@
 // with no live column and writes its dead columns as 0; banded, it skips
 // rows whose window misses its strip.
 //
-// profile_dp_kernel (first version: the 4096 bucket's W = 256;
-// entry point profile_dp_first, the yardstick chip_smoke.py times the
-// other routes against): one CTA per region, threads striding over the W
-// (or T) lanes of the row, one __syncthreads() per anti-diagonal, the
-// state rows in a shared-memory ring, two dependent global loads a cell
-// (unit code, then sub).
+// profile_dp_kernel (the first version, on no route; entry point
+// profile_dp_first, the yardstick chip_smoke.py times the routes
+// against): one CTA per region, threads striding over the W (or T) lanes
+// of the row, one __syncthreads() per anti-diagonal, the state rows in a
+// shared-memory ring, two dependent global loads a cell (unit code, then
+// sub).
 //
 // What bounds them: ~76-88 integer ops a cell, but every kernel here runs
-// a row of one region on one or a few warps in order, at ~0.4-0.6 us a
-// row on the H100 (PERF.md, PR 5): issue at a low IPC, not the DP's
-// dependent chain (~40 clocks a row).  The strips win where a region's
-// row spreads over many SMs (full width: 1.2x at T = 128-640, 3-5x at
-// 2048-4096); in a 128- or 256-lane band at T = 4096 a row is one or two
-// warps' work, and the warp kernel (W = 128) and the first version's
-// W / 32 warps a region (W = 256) win.
+// a row of one region on one or a few warps in order (PERF.md): issue at
+// a low IPC, not the DP's dependent chain (~40 clocks a row).  On the
+// H100 a row of one region at T = 4096, W = 256 costs 0.71 us on the warp
+// kernel (~700-980 instructions on one warp), 0.58 us on the first
+// version (two dependent global loads a cell) and 0.24 us on the band
+// kernel (~130 instructions on each of 8 warps, two a scheduler, and
+// ~200 clocks of latency the row's barrier exposes).  The strips win
+// where a region's row spreads over many SMs (full width: 1.2x at T =
+// 128-640, 3-5x at 2048-4096).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "bulk_copy.cuh"
 
 namespace {
 
@@ -722,6 +736,274 @@ __global__ void __launch_bounds__(SOLO ? STRIP_REGIONS * 32 : STRIP_THREADS)
   }
 }
 
+// -------------------------------------------------------------- band --
+
+constexpr int BAND_CHUNK = 256;           // profile columns a bulk copy
+
+// Byte offsets of profile_dp_band's shared memory: the profile's planes
+// [7][T] (sub 0..4, wdel, wdel2) at 0, the top boundary dels[T], the
+// edge slots [2 rows][2 sides][NW] int4, one mbarrier a chunk of columns,
+// then the unit's codes, code j at [W + j] and 4 outside [0, qlen): a
+// lane's j = r - band_base(r) - l lies in (-W, max(LQ, T) + W].
+struct BandLayout {
+  int dels, slots, bars, unit, bytes;
+};
+
+__host__ __device__ inline BandLayout band_layout(int T, int LQ, int NW) {
+  BandLayout l;
+  l.dels = 7 * T * 4;
+  l.slots = (l.dels + T * 4 + 15) / 16 * 16;
+  l.bars = l.slots + 4 * NW * 16;
+  l.unit = l.bars + (T + BAND_CHUNK - 1) / BAND_CHUNK * 8;
+  l.bytes = (l.unit + 64 * NW + max(LQ, T) + 8 + 15) / 16 * 16;
+  return l;
+}
+
+// One region a CTA of NW warps, W = 32 NW band lanes, one a thread: lane
+// l = threadIdx.x holds the cell at t = band_base(r) + l, and the state of
+// rows r-1 and r-2 in registers as profile_dp_warp holds it (H1, H2, E1,
+// E2, F1, F2, G).  When band_base steps, H1, E1 and E2 move one lane down
+// (__shfl_down_sync), else G, F1, F2 and H2 move one lane up
+// (__shfl_up_sync); the lane at a warp's edge takes the neighbour warp's
+// word from a slot in shared memory that the neighbour's edge lane wrote
+// after the row before, double-buffered by row, so one __syncthreads() a
+// row orders it.  The profile (sub, wdel, wdel2) comes into shared memory
+// once, by bulk copies of BAND_CHUNK columns a plane, each chunk on its
+// own mbarrier, and a row waits only for the chunk its window reaches;
+// the top boundary (from wl, wl2) and the unit are staged by the threads.
+// Each lane loads the next row's profile values before the barrier, so a
+// row starts from registers.  Nothing is read from global memory inside
+// the row loop, and a row's W direction bytes go out as one coalesced
+// store of its W threads.
+template <int NW>
+__global__ void __launch_bounds__(32 * NW, 1) profile_dp_band(
+    const uint8_t* __restrict__ unit, int LQ, const int* __restrict__ sub,
+    const int* __restrict__ wl, const int* __restrict__ wdel,
+    const int* __restrict__ wl2, const int* __restrict__ wdel2,
+    const int* __restrict__ qlen_a, const int* __restrict__ ncol_a, int B,
+    int T, Costs k, uint8_t* __restrict__ dirs) {
+  extern __shared__ int4 band_s[];
+  constexpr int W = 32 * NW;
+  constexpr int wb = W - 8;               // half band
+  const int l = threadIdx.x, lane = l & 31, w = l >> 5;
+  const int bi = blockIdx.x;
+  const BandLayout lay = band_layout(T, LQ, NW);
+  char* const sm = reinterpret_cast<char*>(band_s);
+  int* const prof = reinterpret_cast<int*>(sm);
+  int* const dels = reinterpret_cast<int*>(sm + lay.dels);
+  int4* const slots = reinterpret_cast<int4*>(sm + lay.slots);
+  uint64_t* const bars = reinterpret_cast<uint64_t*>(sm + lay.bars);
+  uint8_t* const us = reinterpret_cast<uint8_t*>(sm + lay.unit);
+
+  const int Lq = qlen_a[bi], Tn = ncol_a[bi];
+  const size_t ro = (size_t)bi * T;
+  const int* const sr = sub + ro * 5;
+  // whole 16-byte pieces a plane and chunk: bulk copies, else loads
+  const bool bulk =
+      T % 4 == 0 &&
+      (((uintptr_t)sub | (uintptr_t)wdel | (uintptr_t)wdel2) & 15) == 0;
+  const int nch = (T + BAND_CHUNK - 1) / BAND_CHUNK;
+  if (bulk && l == 0) {
+    for (int c = 0; c < nch; ++c) mbar_init(bars + c, 1);
+    mbar_fence_init();
+    for (int c = 0; c < nch; ++c) {
+      const int t0 = c * BAND_CHUNK;
+      const unsigned n = 4u * (unsigned)min(BAND_CHUNK, T - t0);
+      mbar_arrive_expect_tx(bars + c, 7 * n);
+#pragma unroll
+      for (int f = 0; f < 5; ++f)
+        bulk_g2s(prof + f * T + t0, sr + f * T + t0, n, bars + c);
+      bulk_g2s(prof + 5 * T + t0, wdel + ro + t0, n, bars + c);
+      bulk_g2s(prof + 6 * T + t0, wdel2 + ro + t0, n, bars + c);
+    }
+  }
+  if (!bulk) {
+    for (int i = l; i < 5 * T; i += W) prof[i] = sr[i];
+    for (int i = l; i < T; i += W) {
+      prof[5 * T + i] = wdel[ro + i];
+      prof[6 * T + i] = wdel2[ro + i];
+    }
+  }
+  // the deletion of columns 0..t above the j == 1 row (top_del)
+  for (int i = l; i < T; i += W)
+    dels[i] = max(-(k.od + wl[ro + i]), -(k.od2 + wl2[ro + i]));
+  const int ub = lay.bytes - lay.unit;
+  for (int i = l; i < ub; i += W) {
+    const int j = i - W;
+    us[i] = (j >= 0 && j < Lq) ? unit[(size_t)bi * LQ + j] : 4;
+  }
+  for (int i = l; i < 4 * NW; i += W) slots[i] = make_int4(NEG, NEG, NEG, NEG);
+  __syncthreads();
+
+  const int nrows = Lq + Tn - 1;
+  const size_t row_stride = (size_t)B * W;
+  uint8_t* drow = dirs + (size_t)bi * W + l;
+  int H1 = NEG, H2 = NEG, E1 = NEG, E2 = NEG, F1 = NEG, F2 = NEG, G = NEG;
+  int hi = bulk ? 0 : T;                  // profile columns [0, hi) landed
+  // this row's window and profile values (sub at its unit code, wdel,
+  // wdel2), loaded a row ahead; row 0's window is [0, W)
+  int base = 0, prev_base = 0;
+  const uint8_t* const uc = us + W - l;   // code j = r - base - l: uc[r - base]
+  int sv = 0, wd = 0, wd2 = 0;
+  auto load = [&](int r1, int b1) {
+    while (hi < b1 + W) {                 // a chunk every BAND_CHUNK / 2 rows
+      mbar_wait(bars + hi / BAND_CHUNK, 0);
+      hi += BAND_CHUNK;
+    }
+    const int* const pc = prof + b1 + l;
+    sv = pc[uc[r1 - b1] * T];
+    wd = pc[5 * T];
+    wd2 = pc[6 * T];
+  };
+  if (nrows > 0) load(0, 0);
+  int del_r = dels[0], del_rm1 = 0;       // row r's j == 1 boundary
+  int ins_r = ins0(0, k);
+
+#pragma unroll 2
+  for (int r = 0; r < nrows; ++r, drow += row_stride) {
+    const int4* const in = slots + ((r - 1) & 1) * 2 * NW;
+    if (base != prev_base) {
+      // the window moved right: row r's view of row r-1 at t
+      int h = __shfl_down_sync(FULL, H1, 1);
+      int e1 = __shfl_down_sync(FULL, E1, 1);
+      int e2 = __shfl_down_sync(FULL, E2, 1);
+      if (lane == 31 && w + 1 < NW) {
+        const int4 v = in[w + 1];
+        h = v.x;
+        e1 = v.y;
+        e2 = v.z;
+      }
+      H1 = h;
+      E1 = e1;
+      E2 = e2;
+    } else {
+      // row r's view of rows r-1 and r-2 at t-1
+      int h2 = __shfl_up_sync(FULL, H2, 1);
+      int g = __shfl_up_sync(FULL, G, 1);
+      int f1 = __shfl_up_sync(FULL, F1, 1);
+      int f2 = __shfl_up_sync(FULL, F2, 1);
+      if (lane == 0 && w > 0) {
+        const int4 v = in[NW + w - 1];
+        h2 = v.x;
+        g = v.y;
+        f1 = v.z;
+        f2 = v.w;
+      }
+      H2 = h2;
+      G = g;
+      F1 = f1;
+      F2 = f2;
+    }
+
+    // the j == 1 boundary of row r + 1 (cell t == r + 1)
+    const int del_n = dels[min(r + 1, T - 1)];
+    const int ins_r1 = ins0(r + 1, k);
+
+    // the cell (j, c) = (r - t + 1, t + 1) and its predecessors in the
+    // band |c - j| <= wb: u = c - j + wb, the same for (j - 1, c) at u + 1
+    // and for (j, c - 1) at u - 1
+    const int ti = base + l;              // < T: the window lies in [0, T)
+    const unsigned u = (unsigned)(2 * ti - r + wb);
+    const bool live = u <= 2u * wb && (unsigned)(r - ti) < (unsigned)Lq &&
+                      ti < Tn;
+    const bool m_up = u + 1 <= 2u * wb;   // (j-1, c)
+    const bool m_dl = u - 1 <= 2u * wb;   // (j, c-1)
+
+    // M: H[j-1][c-1] at (r-2, t-1); E's h_up: H[j-1][c] at (r-1, t)
+    const bool top = ti == r;
+    const int hm = top ? del_rm1 : (ti == 0 ? ins_r : H2);
+    int h_up = top ? del_r : H1;
+    const int M = hm + sv;
+
+    // E (insertion, consumes unit): (r-1, t)
+    if (!m_up) h_up = NEG;
+    const bool e_fresh = top || !m_up;
+    const int e_cont = (e_fresh ? NEG : E1) - k.ei;
+    const int nE1 = __viaddmax_s32(h_up, -(k.oi + k.ei), e_cont);
+    const int icont1 = e_cont > h_up - k.oi - k.ei;
+    const int e2_cont = (e_fresh ? NEG : E2) - k.ei2;
+    const int nE2 = __viaddmax_s32(h_up, -(k.oi2 + k.ei2), e2_cont);
+    const int icont2 = e2_cont > h_up - k.oi2 - k.ei2;
+    const int E = max(nE1, nE2);
+    const int isel2 = nE2 > nE1;
+
+    // F (deletion, consumes column): (r-1, t-1)
+    int g_sh = ti == 0 ? ins_r1 : G;
+    if (!m_dl) g_sh = NEG;
+    const bool f_fresh = ti == 0 || !m_dl;
+    const int f_sh = f_fresh ? NEG : F1;
+    const int nF1 = __viaddmax_s32(g_sh, -k.od, f_sh) - wd;
+    const int fcont1 = f_sh >= g_sh - k.od;
+    const int f2_sh = f_fresh ? NEG : F2;
+    const int nF2 = __viaddmax_s32(g_sh, -k.od2, f2_sh) - wd2;
+    const int fcont2 = f2_sh >= g_sh - k.od2;
+    const int F = max(nF1, nF2);
+    const int fsel2 = nF2 > nF1;
+
+    const int nG = max(M, E);
+    const int sel = F > nG ? 2 : (E > M ? 1 : 0);
+    H2 = H1;
+    H1 = __vimax3_s32(nG, nF1, nF2);
+    E1 = nE1;
+    E2 = nE2;
+    F1 = nF1;
+    F2 = nF2;
+    G = nG;
+    const uint32_t d = sel | (icont1 << 2) | (fcont1 << 3) | (isel2 << 4) |
+                       (fsel2 << 5) | (icont2 << 6) | (fcont2 << 7);
+    *drow = live ? (uint8_t)d : (uint8_t)0;
+    del_rm1 = del_r;
+    del_r = del_n;
+    ins_r = ins_r1;
+    // the next row's window and profile values
+    prev_base = base;
+    base = band_base(r + 1, T, W);
+    load(r + 1, base);
+    // the warp's edge words for row r + 1: its first lane's H1, E1, E2
+    // (a right step), its last lane's H2, G, F1, F2 (no step)
+    int4* const out = slots + (r & 1) * 2 * NW;
+    if (lane == 0) out[w] = make_int4(H1, E1, E2, 0);
+    if (lane == 31) out[NW + w] = make_int4(H2, G, F1, F2);
+    __syncthreads();
+  }
+}
+
+template <int NW>
+int launch_band(const void* unit, int LQ, const void* sub, const void* wl,
+                const void* wdel, const void* wl2, const void* wdel2,
+                const void* qlen, const void* ncol, int B, int T, Costs k,
+                void* dirs, cudaStream_t stream) {
+  const int smem = band_layout(T, LQ, NW).bytes;
+  auto kern = profile_dp_band<NW>;
+  if (smem > 48 * 1024) {
+    const int rc = (int)cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (rc) return rc;
+  }
+  kern<<<B, 32 * NW, smem, stream>>>(
+      (const uint8_t*)unit, LQ, (const int*)sub, (const int*)wl,
+      (const int*)wdel, (const int*)wl2, (const int*)wdel2,
+      (const int*)qlen, (const int*)ncol, B, T, k, (uint8_t*)dirs);
+  return (int)cudaGetLastError();
+}
+
+// The band kernel at W = 128, 256 or 512 (4, 8 or 16 warps a region).
+int launch_bands(const void* unit, int LQ, const void* sub, const void* wl,
+                 const void* wdel, const void* wl2, const void* wdel2,
+                 const void* qlen, const void* ncol, int B, int T, int W,
+                 Costs k, void* dirs, cudaStream_t stream) {
+  if (W == 128)
+    return launch_band<4>(unit, LQ, sub, wl, wdel, wl2, wdel2, qlen, ncol,
+                          B, T, k, dirs, stream);
+  if (W == 256)
+    return launch_band<8>(unit, LQ, sub, wl, wdel, wl2, wdel2, qlen, ncol,
+                          B, T, k, dirs, stream);
+  if (W == 512)
+    return launch_band<16>(unit, LQ, sub, wl, wdel, wl2, wdel2, qlen, ncol,
+                           B, T, k, dirs, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
 int ring_lanes(int T, int W) {
   const int need = W ? W + 2 : T;
   int R = 1;
@@ -848,6 +1130,50 @@ int launch_warp(const void* unit, int LQ, const void* sub, const void* wl,
   return (int)cudaGetLastError();
 }
 
+// profile_dp's kernels, as ops/msa_device.DP_ROUTES names them
+enum Route { ROUTE_STRIPS = 0, ROUTE_WARP = 1, ROUTE_BAND = 2 };
+
+// The band rungs W = 128, 256, 512 take the band kernel in the 4096
+// bucket, where it measured 2.2x the warp kernel at W = 128, 2.4x the
+// first version at W = 256 and 1.4x the strips at W = 512 on the H100
+// (PERF.md), and the warp kernel below it; full width and every other W
+// the strips.
+int dp_route(int T, int W) {
+  const bool rung = W == 128 || W == 256 || W == 512;
+  if (rung && T == 4096) return ROUTE_BAND;
+  return rung ? ROUTE_WARP : ROUTE_STRIPS;
+}
+
+int launch_route(int route, const void* unit, int LQ, const void* sub,
+                 const void* wl, const void* wdel, const void* wl2,
+                 const void* wdel2, const void* qlen, const void* ncol,
+                 int B, int T, int W, Costs k, void* dirs,
+                 cudaStream_t st) {
+  if (T > PROFILE_DP_MAX_T || W >= T) return (int)cudaErrorInvalidValue;
+  if (B == 0) return 0;
+  switch (route) {
+    case ROUTE_WARP:
+      if (W == 128)
+        return launch_warp<4>(unit, LQ, sub, wl, wdel, wl2, wdel2, qlen,
+                              ncol, B, T, k, dirs, st);
+      if (W == 256)
+        return launch_warp<8>(unit, LQ, sub, wl, wdel, wl2, wdel2, qlen,
+                              ncol, B, T, k, dirs, st);
+      if (W == 512)
+        return launch_warp<16>(unit, LQ, sub, wl, wdel, wl2, wdel2, qlen,
+                               ncol, B, T, k, dirs, st);
+      return (int)cudaErrorInvalidValue;
+    case ROUTE_BAND:
+      return launch_bands(unit, LQ, sub, wl, wdel, wl2, wdel2, qlen, ncol,
+                          B, T, W, k, dirs, st);
+    case ROUTE_STRIPS:
+      return launch_strips(unit, LQ, sub, wl, wdel, wl2, wdel2, qlen, ncol,
+                           B, T, W, k, dirs, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // unit [B, LQ] uint8 (0..4), sub [B, 5, T], wl/wdel/wl2/wdel2 [B, T],
@@ -858,30 +1184,28 @@ extern "C" int profile_dp(const void* unit, int LQ, const void* sub,
                           const void* ncol, int B, int T, int W, int oi,
                           int ei, int od, int oi2, int ei2, int od2,
                           void* dirs, void* stream) {
-  if (T > PROFILE_DP_MAX_T) return (int)cudaErrorInvalidValue;
-  if (B == 0) return 0;
-  const Costs k{oi, ei, od, oi2, ei2, od2};
-  cudaStream_t st = (cudaStream_t)stream;
-  // the band rungs below the 4096 bucket take the warp kernel, and W = 128
-  // in it too
-  if (T <= 4096 && W == 128)
-    return launch_warp<4>(unit, LQ, sub, wl, wdel, wl2, wdel2, qlen, ncol,
-                          B, T, k, dirs, st);
-  if (T < 4096 && W == 256)
-    return launch_warp<8>(unit, LQ, sub, wl, wdel, wl2, wdel2, qlen, ncol,
-                          B, T, k, dirs, st);
-  if (T < 4096 && W == 512)
-    return launch_warp<16>(unit, LQ, sub, wl, wdel, wl2, wdel2, qlen, ncol,
-                           B, T, k, dirs, st);
-  // the 4096 bucket's W = 256 keeps the first version: the strips measured
-  // 0.49-0.51x of it there (a lone warp's row a step of the band), the warp
-  // kernel 0.85x (PERF.md, PR 5)
-  if (T == 4096 && W == 256)
-    return launch_first(unit, LQ, sub, wl, wdel, wl2, wdel2, qlen, ncol, B,
-                        T, W, k, dirs, st);
-  // everything else takes the strips
-  return launch_strips(unit, LQ, sub, wl, wdel, wl2, wdel2, qlen, ncol, B,
-                       T, W, k, dirs, st);
+  return launch_route(dp_route(T, W), unit, LQ, sub, wl, wdel, wl2, wdel2,
+                      qlen, ncol, B, T, W, Costs{oi, ei, od, oi2, ei2, od2},
+                      dirs, (cudaStream_t)stream);
+}
+
+// profile_dp's kernel at (T, W), an index of ops/msa_device.DP_ROUTES
+// (host query, no launch).
+extern "C" int profile_dp_route(int T, int W) { return dp_route(T, W); }
+
+// One of profile_dp's kernels (route, a DP_ROUTES index) at any shape it
+// takes (the warp and band kernels W = 128, 256 or 512): the other
+// routes that chip_smoke.py times beside the one profile_dp picks.
+extern "C" int profile_dp_on(int route, const void* unit, int LQ,
+                             const void* sub, const void* wl,
+                             const void* wdel, const void* wl2,
+                             const void* wdel2, const void* qlen,
+                             const void* ncol, int B, int T, int W, int oi,
+                             int ei, int od, int oi2, int ei2, int od2,
+                             void* dirs, void* stream) {
+  return launch_route(route, unit, LQ, sub, wl, wdel, wl2, wdel2, qlen, ncol,
+                      B, T, W, Costs{oi, ei, od, oi2, ei2, od2}, dirs,
+                      (cudaStream_t)stream);
 }
 
 // The first version (profile_dp_kernel) at any shape: the yardstick that

@@ -104,9 +104,24 @@ def state_to_numpy(state: MSAState) -> Tuple[np.ndarray, ...]:
 # ------------------------------------------------------------- kernels --
 
 
+# profile_dp's kernels by shape, as csrc/profile_dp.cu's dp_route picks
+# them (its host query profile_dp_route answers with these indices)
+DP_ROUTES = ("strips", "warp", "band")
+BAND_WIDTHS = (128, 256, 512)   # the warp and band kernels' W
+
+
+def dp_route(T: int, W: Optional[int]) -> str:
+    """The kernel profile_dp launches at (T, W): the band kernel on the
+    band rungs (BAND_WIDTHS) of the 4096 bucket, the warp kernel on those
+    below it, the strips at full width and on every other W."""
+    if W in BAND_WIDTHS:
+        return "band" if T == BUCKETS[-1] else "warp"
+    return "strips"
+
+
 def profile_dp(unit, qlen, ncol, sub, wl, wdel, wl2, wdel2, costs,
                W: Optional[int] = None,
-               first_version: bool = False) -> torch.Tensor:
+               kernel: Optional[str] = None) -> torch.Tensor:
     """Direction plane of one unit round: [2T-1, B, T] (W None, full
     width) or [2T-1, B, W] with lane = (c-1) - band_base(r).  Rows at or
     past a problem's qlen + ncol - 1 are unspecified.
@@ -114,15 +129,18 @@ def profile_dp(unit, qlen, ncol, sub, wl, wdel, wl2, wdel2, costs,
     unit [B, LQ] uint8 (LQ >= qlen), sub [B, 5, T], wl/wdel/wl2/wdel2
     [B, T] and qlen/ncol [B] int32; costs = (oi, ei, od, oi2, ei2, od2).
 
-    On the card (csrc/profile_dp.cu) the band rungs W = 128/256/512 below
-    the 4096 bucket and W = 128 in it take profile_dp_warp (a warp a
-    region, the window in registers); W = 256 in the 4096 bucket takes the
-    first version (profile_dp_kernel); every other shape (full width at
-    every T, W = 512 at T = 4096, any other W) takes profile_dp_strip
-    (warps own strips of 32 x L columns, over one CTA or a cluster of up
-    to 8; L = 4 up to T = 128, else 2).  first_version runs
-    profile_dp_kernel, the first port, at any shape: the yardstick
-    chip_smoke.py times the routes against."""
+    On the card (csrc/profile_dp.cu) the kernel is dp_route(T, W)'s: the
+    band rungs W = 128/256/512 below the 4096 bucket take
+    profile_dp_warp (a warp a region, the window in registers), and in
+    the 4096 bucket profile_dp_band (a CTA a region, one band lane a
+    thread over W / 32 warps, the profile in shared memory); full width
+    at every T and any other W take profile_dp_strip (warps own strips of
+    32 x L columns, over one CTA or a cluster of up to 8; L = 4 up to T =
+    128, else 2).  Each launch counts on K.PROFILE_DP under its route.
+    kernel "first" runs profile_dp_kernel, the first port, and a name of
+    DP_ROUTES that route's kernel (the warp and band kernels at W in
+    BAND_WIDTHS), at any shape: the yardsticks chip_smoke.py times the
+    routes against."""
     B, LQ = unit.shape
     T = sub.shape[2]
     if unit.dtype != torch.uint8:
@@ -135,6 +153,10 @@ def profile_dp(unit, qlen, ncol, sub, wl, wdel, wl2, wdel2, costs,
         raise TypeError("scores, weights and lengths must be int32")
     if W is not None and not 8 < W < T:
         raise ValueError(f"band window {W} must lie in (8, T={T})")
+    if kernel not in (None, "first", *DP_ROUTES):
+        raise ValueError(f"unknown profile_dp kernel {kernel!r}")
+    if kernel in ("warp", "band") and W not in BAND_WIDTHS:
+        raise ValueError(f"the {kernel} kernel takes W in {BAND_WIDTHS}")
     if unit.device.type == "cpu":
         return profile_dp_plain(unit, qlen, ncol, sub, wl, wdel, wl2,
                                 wdel2, costs, W)
@@ -151,10 +173,12 @@ def profile_dp(unit, qlen, ncol, sub, wl, wdel, wl2, wdel2, costs,
                        device=unit.device)
     ptrs = (args[0].data_ptr(), LQ, *(a.data_ptr() for a in args[1:]), B,
             T, W or 0, *(int(c) for c in costs), dirs.data_ptr())
-    if first_version:
+    if kernel is None:
+        K.PROFILE_DP(unit.device, *ptrs, route=dp_route(T, W))
+    elif kernel == "first":
         K.PROFILE_DP_FIRST(unit.device, *ptrs)
     else:
-        K.PROFILE_DP(unit.device, *ptrs)
+        K.PROFILE_DP_ON(unit.device, DP_ROUTES.index(kernel), *ptrs)
     return dirs
 
 
