@@ -38,7 +38,10 @@ Phases, each printing its result on its own line:
      byte-identical with the port's host oracle
      (pipeline.core.tidehunter_core); then the timed run once more under
      torch.profiler: each kernel's device ms and launches on the slice and
-     the device busy share;
+     the device busy share; then the host floor (evals/host_floor.py's
+     engine with an instant device) and the slice, FLOOR_TURNS runs of
+     each in turns on the same reads and chunks: the floor's share of the
+     slice's wall a turn;
   5. short and long periods end to end: 512 reads of a 60 bp unit x 60,
      256 of 1500 bp x 6 and 128 of 3000 bp x 4 (synth_read, seed 43)
      through the same runner and engine, one warm run then a timed run;
@@ -116,6 +119,23 @@ Phases, each printing its result on its own line:
      drew each switch, and the divergences and crashes, both 0.  Each of
      these runs resets the launch counts before it and fails if a kernel
      of its path did not launch.  No cut was needed.
+ 11. the measurement tools (tidehunter_tpu_torch/evals/: host_floor,
+     seed_chain_micro, offload_micro2, offload_micro, msa_micro,
+     tunnel_micro, dtype_micro, testfq_stages, mesh_scaling), each run by
+     its main on the card and its table printed, a tool's own check (the
+     staged seed and chain against the routes, 0 chain mismatches with the
+     host, one MSA round against its steps, every mesh size's records
+     against one device's) failing the run: the host floor at 1024 reads
+     (its stage split; its share of the slice is phase 4's), both seeding
+     routes' stage splits
+     and the route against the host at 512 reads, the DeviceMSA step split
+     at 512 regions, the copy costs and the element-type rates at their
+     defaults, the periods path's 896 reads written as FASTQ with a
+     constant quality at 2 reps (a cut from the tool's 3) and mesh sizes
+     1, 2, 4 and 8 on the one card.  Before the tools, dtype_micro's
+     kernel against its plain version, exactly, at each element type and
+     the SWAR variant (the kernel line's dtype_micro row: its int32 case;
+     its launches: the tool's own run).
 The line before the last is a JSON object with every kernel's launches,
 error, times and bound (the larger of its integer ops over the card's int32
 rate and its bytes over 3.35 TB/s; a profile DP's ops count the cells the
@@ -227,7 +247,8 @@ MAIN_SHAPES = {"wf_global": "iden_only (512,512) B=4096",
                "profile_bt": "T=640 W=128 B=512",
                "myers_hw": "largest launch of -5 -3 -f 2",
                "seed_hits": "slice chunk k=8 w=1 B=512 packed",
-               "chain_dp": "slice chunk hits window=full B=512"}
+               "chain_dp": "slice chunk hits window=full B=512",
+               "dtype_micro": "int32 (512,1024) chain 64"}
 # wf_ext's lanes a thread timed at the slice's extension shapes, beside
 # the choice of ops/wavefront.ext_lanes
 EXT_LANES_SWEEP = ((512, 640), (512, 256))
@@ -235,6 +256,7 @@ LANES = (1, 2, 4)
 # the probe's comparison shapes: its defaults and an odd tile
 PROBE_CASES = [(512, 128), (200, 7)]
 SLICE_READS = 1024
+FLOOR_TURNS = 3      # phase 4's runs of the host floor and the slice each
 SLICE_KERNELS = ("wf_global", "wf_ext", "profile_dp", "profile_bt")
 # kernel names in a trace -> the kernel (profile_dp has four)
 TRACE_NAMES = {"wf_global_kernel": "wf_global", "wf_ext_kernel": "wf_ext",
@@ -326,6 +348,14 @@ MESH_RUNS = (("TH_MESH=-1", {"TH_MESH": "-1"}, False),
              ("Mesh([cuda:0, cuda:0])", {}, True))
 MESH_ENV = DEVICE_SEED_ENV + ("TH_MESH", "TH_HOST_ALN_CAP", "TH_HOST_WALK",
                               "TH_DIST", "TH_METRICS")
+# phase 11: the measurement tools, each with the arguments of its run
+# (testfq_stages' FASTQ is written by the phase); dtype_micro's checked
+# shape stands in the summary
+EVAL_TOOLS = (("host_floor", ["1024"]), ("seed_chain_micro", ["512"]),
+              ("offload_micro2", ["512"]), ("offload_micro", ["512"]),
+              ("msa_micro", ["512"]), ("tunnel_micro", []),
+              ("dtype_micro", []), ("testfq_stages", ["FASTQ", "2"]),
+              ("mesh_scaling", []))
 
 
 def nvidia_smi(query: str) -> str:
@@ -918,6 +948,7 @@ def phase_slice(tmp, dev):
         raise AssertionError(f"kernels not launched by the slice: {idle}")
     trace_run(lambda: runner.run(fa, mtp, out=io.StringIO(),
                                  process_chunk=engine), dev, "slice")
+    floor_in_turns(fa, mtp, engine, dev)
     if metrics.reads != n_reads or metrics.cons_records < n_reads // 2:
         raise AssertionError(f"slice produced {metrics.cons_records} records"
                              f" for {metrics.reads} reads")
@@ -938,6 +969,34 @@ def phase_slice(tmp, dev):
           f"byte-identical with tidehunter_core ({oracle_s:.1f} s host)",
           flush=True)
     return launches, (fa, sink.getvalue())
+
+
+def floor_in_turns(fa, mtp, engine, dev):
+    """The host floor and the slice, FLOOR_TURNS runs of each in turns on
+    the slice's reads and chunks in this process (the floor's engine warmed
+    once first), so that the host's speed is the same for both: the walls
+    a turn and the floor's share of the slice's."""
+    from tidehunter_tpu_torch.evals import host_floor as HF
+    from tidehunter_tpu_torch.pipeline import runner
+
+    floor = HF.floor_engine(mtp, dev.type)
+    runner.run(fa, mtp, out=io.StringIO(), process_chunk=floor)
+    walls = {"floor": [], "slice": []}
+    for _ in range(FLOOR_TURNS):
+        for name, eng in (("floor", floor), ("slice", engine)):
+            sync(dev)
+            t0 = time.perf_counter()
+            runner.run(fa, mtp, out=io.StringIO(), process_chunk=eng)
+            sync(dev)
+            walls[name].append(time.perf_counter() - t0)
+    floor.close()
+    ms = {k: [1e3 * w / SLICE_READS for w in v] for k, v in walls.items()}
+    shares = [f / w for f, w in zip(walls["floor"], walls["slice"])]
+    print("host floor in turns with the slice (ms/read [host]): floor "
+          + " ".join(f"{x:.4f}" for x in ms["floor"]) + "; slice "
+          + " ".join(f"{x:.4f}" for x in ms["slice"])
+          + "; the floor's share of the slice's wall a turn "
+          + " ".join(f"{x:.4f}" for x in shares), flush=True)
 
 
 def trace_run(run, dev, label):
@@ -2128,6 +2187,78 @@ def phase_corpus(tmp, dev):
         _set_env({k: v for k, v in saved.items() if v is not None},
                  env_names)
 
+
+def check_dtype_micro(checks):
+    """dtype_micro's kernel against its plain version on the card, exactly
+    (the float variants bit for bit), at the tool's default shape for every
+    variant, both timed; a variant's bound counts OPS_PER_STEP ops an
+    element a step at the int32 rate and the three inputs read and two
+    outputs written once.  The summary keeps the int32 case."""
+    from tidehunter_tpu_torch.evals import dtype_micro as DM
+
+    def bits(ts):
+        return [t.view(torch.int16 if t.dtype == torch.bfloat16
+                       else torch.int32) if t.is_floating_point() else t
+                for t in ts]
+
+    B, L = DM.SHAPE
+    for name, arrays in DM.inputs(B, L).items():
+        x, y, a = DM.tensors(name, arrays, "cuda")
+        checks.run("dtype_micro", f"{name} ({B},{L}) chain {DM.CHAIN}",
+                   lambda: DM.step(name, x, y, a),
+                   lambda: DM.step_plain(name, x, y, a),
+                   lambda: (DM.OPS_PER_STEP * DM.CHAIN * B * L,
+                            5 * B * L * x.element_size()),
+                   select=bits)
+
+
+def phase_evals(tmp, dev, checks):
+    """Phase 11: dtype_micro's kernel checks, then every tool of EVAL_TOOLS
+    by its main on the card, its output printed line by line under its
+    name; a tool that exits non-zero fails the run.  Returns dtype_micro's
+    launches in its own run."""
+    import contextlib
+    import importlib
+
+    from tidehunter_tpu_torch import _kernels as K
+
+    check_dtype_micro(checks)
+    fq = os.path.join(tmp, "periods.fq")
+    with open(fq, "w") as f:
+        for pop in period_populations():
+            for r in pop:
+                f.write(f"@{r.name}\n{r.seq}\n+\n{'5' * len(r.seq)}\n")
+    saved = {k: os.environ.pop(k, None) for k in MESH_ENV + ("TH_MSA",)}
+    launches = None
+    try:
+        for name, argv in EVAL_TOOLS:
+            mod = importlib.import_module(
+                f"tidehunter_tpu_torch.evals.{name}")
+            argv = [fq if a == "FASTQ" else a for a in argv]
+            if name == "dtype_micro":
+                K.DTYPE_MICRO.launches = 0
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                rc = mod.main([*argv, "--device", "cuda"])
+            wall = time.perf_counter() - t0
+            if name == "dtype_micro":
+                launches = K.DTYPE_MICRO.launches
+            for line in out.getvalue().splitlines():
+                print(f"[{name}] {line}", flush=True)
+            print(f"eval tool {name} {' '.join(argv)}: exit {rc} in "
+                  f"{wall:.1f} s", flush=True)
+            if rc != 0:
+                raise AssertionError(f"eval tool {name}: exit {rc}")
+    finally:
+        for k, v in saved.items():
+            if v is not None:
+                os.environ[k] = v
+    if not launches:
+        raise AssertionError("dtype_micro's run launched no kernel")
+    return launches
+
+
 KERNEL_META = {
     "wf_global": ("tidehunter_tpu_torch/csrc/wavefront.cu",
                   "tidehunter_tpu/ops/wavefront.py:154"),
@@ -2157,6 +2288,9 @@ KERNEL_META = {
                   "tidehunter_tpu/ops/seeding_jax.py:243"),
     "chain_dp": ("tidehunter_tpu_torch/csrc/chain_dp.cu",
                  "tidehunter_tpu/ops/chaining_jax.py:63"),
+    # the element-type rate tool's step (phase 11)
+    "dtype_micro": ("tidehunter_tpu_torch/csrc/dtype_micro.cu",
+                    "evals/dtype_micro.py step (XLA-fused, not Pallas)"),
 }
 
 
@@ -2248,6 +2382,9 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         phase_corpus(tmp, dev)
         print(f"corpus phase: {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        launches["dtype_micro"] = phase_evals(tmp, dev, checks)
+        print(f"evals phase: {time.perf_counter() - t0:.1f} s", flush=True)
 
     print(f"whole run: {time.perf_counter() - T0:.1f} s", flush=True)
     rows = []

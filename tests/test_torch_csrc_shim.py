@@ -6,11 +6,13 @@ or a cluster a region; ``profile_dp_first``, the first version;
 ``profile_dp_on``, a route's kernel at any shape), csrc/profile_bt.cu
 (``profile_bt``), csrc/myers_hw.cu (``myers_hw``), csrc/seed_hits.cu
 (``seed_hits``: shared-memory and global-scratch routes, 32- and 64-bit
-seed words) and csrc/chain_dp.cu (``chain_dp``) are compiled with the
-host's C++ compiler over tests/cuda_shim.h, which emulates the CUDA subset
-they use (threads, warp shuffles and ballots, barriers, shared memory,
-cp.async copies, Hopper's bulk copies and their mbarriers, thread-block
-clusters and their distributed shared memory, the DPX intrinsics), and
+seed words), csrc/chain_dp.cu (``chain_dp``) and csrc/dtype_micro.cu
+(``dtype_micro``, the element-type rate tool's step at every type) are
+compiled with the host's C++ compiler over tests/cuda_shim.h, which
+emulates the CUDA subset they use (threads, warp shuffles and ballots,
+barriers, shared memory, cp.async copies, Hopper's bulk copies and their
+mbarriers, thread-block clusters and their distributed shared memory, the
+DPX intrinsics; bfloat16 arithmetic comes from BF16_SHIM below), and
 called
 through the same C entry points and argument lists that _kernels.py
 binds.  Every output must equal the port's plain version exactly.  This
@@ -37,6 +39,7 @@ from test_offload import _random_reads
 
 from tidehunter_tpu.ops.seeding import collect_tandem_repeat_hits
 from tidehunter_tpu_torch import _kernels as K
+from tidehunter_tpu_torch.evals import dtype_micro as DM
 from tidehunter_tpu_torch.ops import chaining_device as CD
 from tidehunter_tpu_torch.ops import msa_device as TMD
 from tidehunter_tpu_torch.ops import seeding_device as SD
@@ -46,14 +49,49 @@ from tidehunter_tpu_torch.ops import wavefront as TW
 torch.set_num_threads(1)
 
 SOURCES = ("wavefront.cu", "profile_dp.cu", "profile_bt.cu", "myers_hw.cu",
-           "seed_hits.cu", "chain_dp.cu")
+           "seed_hits.cu", "chain_dp.cu", "dtype_micro.cu")
+
+
+# cuda_bf16.h's bfloat16 for the shim: each op in float, rounded to
+# nearest even, as the card's bf16 add, subtract and max round (NaN is not
+# modelled)
+BF16_SHIM = """
+#include "cuda_shim.h"
+#include <cmath>
+struct __nv_bfloat16 { uint16_t bits; };
+inline float shim_bf2f(__nv_bfloat16 h) {
+  const uint32_t u = (uint32_t)h.bits << 16;
+  float f;
+  std::memcpy(&f, &u, 4);
+  return f;
+}
+inline __nv_bfloat16 shim_f2bf(float f) {
+  uint32_t u;
+  std::memcpy(&u, &f, 4);
+  u += 0x7FFFu + ((u >> 16) & 1u);
+  return {(uint16_t)(u >> 16)};
+}
+inline __nv_bfloat16 __hadd(__nv_bfloat16 a, __nv_bfloat16 b) {
+  return shim_f2bf(shim_bf2f(a) + shim_bf2f(b));
+}
+inline __nv_bfloat16 __hsub(__nv_bfloat16 a, __nv_bfloat16 b) {
+  return shim_f2bf(shim_bf2f(a) - shim_bf2f(b));
+}
+inline __nv_bfloat16 __hmax(__nv_bfloat16 a, __nv_bfloat16 b) {
+  return shim_bf2f(a) >= shim_bf2f(b) ? a : b;
+}
+inline bool __hgt(__nv_bfloat16 a, __nv_bfloat16 b) {
+  return shim_bf2f(a) > shim_bf2f(b);
+}
+"""
 
 
 def _translate(src: str) -> str:
-    """CUDA C++ -> C++ over cuda_shim.h: the includes, dynamic shared
-    memory and the <<<...>>> launches."""
+    """CUDA C++ -> C++ over cuda_shim.h: the includes (cuda_bf16.h becomes
+    BF16_SHIM), dynamic shared memory and the <<<...>>> launches."""
     src = src.replace("#include <cuda_runtime.h>", '#include "cuda_shim.h"')
     src = src.replace("#include <cuda_pipeline.h>", "")
+    src = src.replace("#include <cuda_bf16.h>", BF16_SHIM)
     src = src.replace("#include <cooperative_groups.h>", "")
     src = src.replace('#include "bulk_copy.cuh"', "")
     src = re.sub(r"extern __shared__ (\w+) (\w+)\[\];",
@@ -89,7 +127,7 @@ def lib(tmp_path_factory):
     fns = {}
     for k in (K.WF_GLOBAL, K.WF_EXT, K.PROFILE_DP, K.PROFILE_DP_FIRST,
               K.PROFILE_DP_ON, K.PROFILE_BT, K.MYERS_HW, K.SEED_HITS,
-              K.CHAIN_DP):
+              K.CHAIN_DP, K.DTYPE_MICRO):
         fn = getattr(dll, k.name)
         fn.argtypes = [*k.argtypes, ctypes.c_void_p]
         fn.restype = ctypes.c_int
@@ -886,3 +924,18 @@ def test_shim_poisons_an_exited_cluster_cta(tmp_path, last_sync):
         assert fn(out.ctypes.data, int(last_sync)) == 0
         want = [101, 100] if last_sync else [101, 0x5A5A5A5A]
         assert out.tolist() == want
+
+
+@pytest.mark.parametrize("name", list(DM.VARIANTS))
+def test_dtype_micro_source_matches_plain(lib, name):
+    """Every variant of the rate tool's step, the tool's own inputs at
+    (4, 96) (a last block of 128 threads), CHAIN steps: exact."""
+    x, y, a = (t.contiguous() for t in DM.tensors(
+        name, DM.inputs(4, 96)[name], "cpu"))
+    xo, yo = torch.empty_like(x), torch.empty_like(y)
+    rc = lib["dtype_micro"](x.data_ptr(), y.data_ptr(), a.data_ptr(),
+                            xo.data_ptr(), yo.data_ptr(), x.numel(),
+                            DM.CHAIN, list(DM.VARIANTS).index(name), None)
+    assert rc == 0
+    wx, wy = DM.step_plain(name, x, y, a)
+    assert torch.equal(xo, wx) and torch.equal(yo, wy)

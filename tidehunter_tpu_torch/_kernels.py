@@ -191,10 +191,12 @@ SEED_HITS = Kernel("seed_hits", [P, P, I, I, I, I, I, I, I, I, I, I, I, P,
                                  P, P, P, P])
 # csrc/chain_dp.cu
 CHAIN_DP = Kernel("chain_dp", [P, P, P, I, I, I, I, P, P, P])
+# csrc/dtype_micro.cu
+DTYPE_MICRO = Kernel("dtype_micro", [P, P, P, P, P, I, I, I])
 
 KERNELS = (WF_GLOBAL, WF_EXT, PROFILE_DP, PROFILE_DP_FIRST,
            PROFILE_DP_ON, PROFILE_BT,
-           WF_DTYPE_PROBE, MYERS_HW, SEED_HITS, CHAIN_DP)
+           WF_DTYPE_PROBE, MYERS_HW, SEED_HITS, CHAIN_DP, DTYPE_MICRO)
 
 
 def reset_launches() -> None:

@@ -71,6 +71,55 @@ from .utils.metrics import METRICS
 
 KSW2_SCORES = (ksw2.MATCH_SC, ksw2.MIS_SC, ksw2.GAP_OPEN, ksw2.GAP_EXT)
 MSA_MODES = ("profile", "poa")
+# the v1 seeding route's largest row chained on the device, in hits
+V1_OVERSIZE_HITS = 8192
+
+
+def v1_chain_window(cnt: np.ndarray, fb: np.ndarray, L: int):
+    """(H, max_hits, Lh, oversize) of a v1 chunk from its pulled hit counts
+    and seed flags: the most hits of a served row (the pulled width), the
+    most of a row of at most V1_OVERSIZE_HITS (the chained width), the
+    chain_dp window (512 doubled up to max_hits, at most the padded width
+    L) and the rows past the limit, which the host chains."""
+    cnt_ok = np.where(fb, 0, cnt)
+    oversize = cnt_ok > V1_OVERSIZE_HITS
+    H = int(cnt_ok.max()) if len(cnt) else 0
+    max_hits = int(np.where(oversize, 0, cnt_ok).max()) if len(cnt) else 0
+    Lh = 512
+    while Lh < max_hits:
+        Lh *= 2
+    return H, max_hits, min(Lh, L), oversize
+
+
+def v1_assemble(encoded, mtp: Params, cnt, fb, ends, periods, dp=None):
+    """(hits_list, chains_list) of a v1 chunk from its pulled planes: a
+    seed-flagged row is seeded on the host; with dp = (score, from_idx,
+    chain flags), every other row of 2 hits or more is chained from the DP
+    and a chain-flagged row is left None for the host chainer."""
+    ends, periods = ends.astype(np.int64), periods.astype(np.int64)
+    hits_list: List = []
+    chains_list: List = [None] * len(encoded)
+    for i, bs in enumerate(encoded):
+        if fb[i]:
+            METRICS.add("offload_seed_fb")
+            hits_list.append(collect_tandem_repeat_hits(
+                bs, mtp.k, mtp.w, mtp.hpc, mtp.min_p, mtp.max_p))
+            continue
+        c = int(cnt[i])
+        e, p = ends[i, :c], periods[i, :c]
+        hits_list.append((e, p))
+        if dp is None:
+            continue
+        score, from_idx, fb_c = dp
+        if c < 2:
+            chains_list[i] = (None, [])
+        elif fb_c[i]:
+            METRICS.add("offload_chain_fb")     # the host chainer
+        else:
+            chains_list[i] = tandem_chain_from_dp(
+                e, p, score[i, :c].astype(np.int64),
+                from_idx[i, :c].astype(np.int64), mtp.k)
+    return hits_list, chains_list
 
 
 # --- breadth-first generator driving (tidehunter_tpu/engine.py) ---
@@ -492,9 +541,10 @@ class Engine:
         fit: k up to 16, long reads), then, with TH_DEVICE_CHAIN=1 or
         under a mesh unless TH_DEVICE_CHAIN=0, chain_dp at window = the
         hit bucket (512 and up by powers of two) over the rows of at most
-        8192 hits; a larger row, like every row the seeder flags, is
-        chained on the host.  Every launch splits its rows over the mesh,
-        each device on its own seeding stream."""
+        V1_OVERSIZE_HITS hits (v1_chain_window); a larger row, like every
+        row the seeder flags, is chained on the host (v1_assemble).  Every
+        launch splits its rows over the mesh, each device on its own
+        seeding stream."""
         maxL = max((len(r.seq) for r in chunk), default=1)
         chain_env = os.environ.get("TH_DEVICE_CHAIN", "")
         mesh = self.mesh or PM.Mesh([self.device])
@@ -510,7 +560,6 @@ class Engine:
 
         dev_chain = chain_env == "1" or (chain_env != "0"
                                          and self.mesh is not None)
-        n = len(chunk)
         encoded = [encode(rec.seq) for rec in chunk]
         batch, lens = pad_batch(encoded)
         ends_d, periods_d, cnt_d, fb_d = PM.shard_rows(
@@ -520,19 +569,13 @@ class Engine:
             mesh, torch.as_tensor(batch), torch.as_tensor(lens),
             streams=streams)
         cnt, fb = PM.pull_async([cnt_d, fb_d], stream)()
-        cnt_ok = np.where(fb, 0, cnt)
-        oversize = cnt_ok > 8192
-        max_hits = int(np.where(oversize, 0, cnt_ok).max()) if n else 0
-        H = int(cnt_ok.max()) if n else 0
+        H, max_hits, Lh, oversize = v1_chain_window(cnt, fb,
+                                                    ends_d.shape[1])
         planes = [ends_d[:, :H], periods_d[:, :H]]
         chain = dev_chain and max_hits >= 2
         with (METRICS.timed("device_chain") if chain
               else contextlib.nullcontext()):
             if chain:
-                Lh = 512
-                while Lh < max_hits:
-                    Lh *= 2
-                Lh = min(Lh, ends_d.shape[1])
                 with PM.on_device(self.device, stream):
                     rows = (ends_d[:, :Lh].contiguous(),
                             periods_d[:, :Lh].contiguous(),
@@ -543,34 +586,8 @@ class Engine:
                 planes += [score_d[:, :max_hits], from_d[:, :max_hits],
                            fbc_d]
             planes = PM.pull_async(planes, stream)()
-        ends, periods = (a.astype(np.int64) for a in planes[:2])
-        fb_c = None
-        if chain:
-            score, from_idx = planes[2], planes[3]
-            fb_c = planes[4] | oversize
-        hits_list: List = []
-        chains_list: List = [None] * n
-        for i in range(n):
-            if fb[i]:
-                METRICS.add("offload_seed_fb")
-                hits_list.append(collect_tandem_repeat_hits(
-                    encoded[i], mtp.k, mtp.w, mtp.hpc, mtp.min_p,
-                    mtp.max_p))
-                continue
-            c = int(cnt[i])
-            e, p = ends[i, :c], periods[i, :c]
-            hits_list.append((e, p))
-            if fb_c is None:
-                continue
-            if c < 2:
-                chains_list[i] = (None, [])
-            elif fb_c[i]:
-                METRICS.add("offload_chain_fb")     # the host chainer
-            else:
-                chains_list[i] = tandem_chain_from_dp(
-                    e, p, score[i, :c].astype(np.int64),
-                    from_idx[i, :c].astype(np.int64), mtp.k)
-        return hits_list, chains_list
+        dp = (planes[2], planes[3], planes[4] | oversize) if chain else None
+        return v1_assemble(encoded, mtp, cnt, fb, planes[0], planes[1], dp)
 
     def _use_native_walks(self) -> bool:
         """Walk on the host (native C, in prepare_chunk) without a mesh;

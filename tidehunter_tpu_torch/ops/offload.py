@@ -119,8 +119,20 @@ def device_seed_chain(bseqs: List[Optional[np.ndarray]], mtp,
     H = int(cnt[served].max()) if served.any() else 0
     planes = PM.pull_async([x[:, :H] for x in (outs[:1] + outs[3:5])],
                            stream)()
+    return assemble(bseqs, mtp, has_n, cnt, fb_seed, fb_chain, planes, pb)
+
+
+def assemble(bseqs: Sequence[Optional[np.ndarray]], mtp, has_n, cnt,
+             fb_seed, fb_chain, planes, pb: int):
+    """(hits_list, chains_list) of device_seed_chain from its pulled flags
+    and planes (the packed hits, and with fb_chain the DP's score and
+    from): a too-short read gets no hits and no chains, a read with an N
+    or a seed-flagged row is seeded on the host (its chains None, for the
+    host chainer); with fb_chain (chain_mode="device") a chain-flagged row
+    is chained by tandem_chain_native, every other one from the DP."""
+    n = len(bseqs)
     words = planes[0].astype(np.int64)
-    ends, periods = words >> pb, words & pmask
+    ends, periods = words >> pb, words & ((1 << pb) - 1)
     hits_list: List = [None] * n
     chains_list: List = [None] * n
     for i in range(n):
@@ -136,7 +148,7 @@ def device_seed_chain(bseqs: List[Optional[np.ndarray]], mtp,
         c = int(cnt[i])
         e, p = ends[i, :c], periods[i, :c]
         hits_list[i] = (e, p)
-        if not with_chain:
+        if fb_chain is None:
             continue
         if c < 2:
             chains_list[i] = (None, [])
