@@ -31,26 +31,30 @@ Phases, each printing its result on its own line:
      in all four variants at (T=512, BT=128) and (T=200, BT=7), then the
      probe's own timing table at its defaults;
   4. the default consensus path end to end: 1024 synthetic R2C2 reads
-     (evals/synth.synth_read, seed 42) through pipeline.runner with the
-     port's engine on cuda, chunks of 512, one warm run then a timed run;
-     every kernel of the path must have launched in the timed run, and the
-     records of 32 of those reads plus 12 fuzz-style reads must be
-     byte-identical with the port's host oracle
-     (pipeline.core.tidehunter_core); then the timed run once more under
-     torch.profiler: each kernel's device ms and launches on the slice and
-     the device busy share; then the host floor (evals/host_floor.py's
+     (evals/bench.slice_reads: synth_read, seed 42) through
+     pipeline.runner with the port's engine on cuda, chunks of 512, one
+     warm run then a timed run; every kernel of the path must have
+     launched in the timed run, the records of 32 of those reads plus 12
+     fuzz-style reads must be byte-identical with the port's host oracle
+     (pipeline.core.tidehunter_core), and every read's records of the
+     timed run must match its committed oracle digest
+     (evals/bench_digests.json, all 1024; the input FASTA its sha256);
+     then the timed run once more under torch.profiler: each kernel's
+     device ms and launches on the slice and the device busy share; then the host floor (evals/host_floor.py's
      engine with an instant device) and the slice, FLOOR_TURNS runs of
      each in turns on the same reads and chunks: the floor's share of the
      slice's wall a turn;
   5. short and long periods end to end: 512 reads of a 60 bp unit x 60,
-     256 of 1500 bp x 6 and 128 of 3000 bp x 4 (synth_read, seed 43)
+     256 of 1500 bp x 6 and 128 of 3000 bp x 4 (evals/bench.
+     period_populations: synth_read, seed 43)
      through the same runner and engine, one warm run then a timed run;
      full-width rounds (K3) and the 4096 bucket's W=256 must have
      launched, the latter on profile_dp's route there (the band kernel),
      whose launches by route the phase prints; the
      timed run's records of the first 8 reads of each population
      byte-identical with tidehunter_core (run over a pool of host
-     processes); the timed run once more under torch.profiler;
+     processes), and every read's (all 896) matching its committed oracle
+     digest; the timed run once more under torch.profiler;
   6. options: 1024 R2C2 reads with adapters (each unit the 84 bp 5'
      adapter, a 450 bp insert and the reverse complement of the 25 bp 3'
      adapter; 9 copies at 10% error, a quarter of the reads a single
@@ -80,8 +84,9 @@ Phases, each printing its result on its own line:
      as well (the v1 route; a warm and a timed run each: reads/s,
      device_seed, seed_chain, partition, the offload_*_fb reroutes and
      both kernels' launches), every record byte-identical with phase 4's
-     timed run, and one run of the periods path with both switches
-     byte-identical with phase 5's;
+     timed run (itself held read by read to the oracle's digests), and
+     one run of the periods path with both switches byte-identical with
+     phase 5's (likewise held);
   9. the mesh and --dist (parallel/mesh.py): the slice through
      engine.make_engine with TH_MESH=-1 (a mesh of the one card: device
      seeding by default, the partition walks as breadth-first global
@@ -91,8 +96,9 @@ Phases, each printing its result on its own line:
      blocks); a warm and a timed run each: reads/s, rounds, walk rounds,
      launches and K1's walk launch shapes (the largest must be the one
      phase 2 checks, WALK_CASES), every record byte-identical with phase
-     4's timed run; then two CLI processes with --dist 127.0.0.1:PORT/2/I
-     -f 2 on the card, their shards merged by tools.merge byte-identical
+     4's timed run (itself held read by read to the oracle's digests);
+     then two CLI processes with --dist 127.0.0.1:PORT/2/I -f 2 on the
+     card, their shards merged by tools.merge byte-identical
      with one process's -f 2 run.  Phase 2 holds K1 at the walk shapes
      ((128,128) B=507 and (256,256) B=1, t_left) to its plain version;
  10. the corpora (tidehunter_tpu_torch/evals/fuzz.py, soak.py,
@@ -134,8 +140,14 @@ Phases, each printing its result on its own line:
      constant quality at 2 reps (a cut from the tool's 3) and mesh sizes
      1, 2, 4 and 8 on the one card.  Before the tools, dtype_micro's
      kernel against its plain version, exactly, at each element type and
-     the SWAR variant (the kernel line's dtype_micro row: its int32 case;
-     its launches: the tool's own run).
+     the SWAR variant, each bound at its type's rate (the kernel line's
+     dtype_micro row: its int32 case; its launches: the tool's own run);
+ 12. the bench (tidehunter_tpu_torch/evals/bench.py) by its main on the
+     card, BENCH_PHASE_REPS timed runs of the slice and the periods path
+     after a warm run each, every read's records of both (1920 reads)
+     held to the committed digests and every rep to the first: its stderr
+     lines printed under [bench], then its JSON object on a line of its
+     own.
 The line before the last is a JSON object with every kernel's launches,
 error, times and bound (the larger of its integer ops over the card's int32
 rate and its bytes over 3.35 TB/s; a profile DP's ops count the cells the
@@ -255,7 +267,6 @@ EXT_LANES_SWEEP = ((512, 640), (512, 256))
 LANES = (1, 2, 4)
 # the probe's comparison shapes: its defaults and an odd tile
 PROBE_CASES = [(512, 128), (200, 7)]
-SLICE_READS = 1024
 FLOOR_TURNS = 3      # phase 4's runs of the host floor and the slice each
 SLICE_KERNELS = ("wf_global", "wf_ext", "profile_dp", "profile_bt")
 # kernel names in a trace -> the kernel (profile_dp has four)
@@ -266,9 +277,6 @@ TRACE_NAMES = {"wf_global_kernel": "wf_global", "wf_ext_kernel": "wf_ext",
                "profile_dp_kernel": "profile_dp_first",
                "profile_bt_warp": "profile_bt",
                "myers_hw_kernel": "myers_hw"}
-# phase 5: (name, reads, unit length, copies) of each population
-PERIOD_POPULATIONS = (("short", 512, 60, 60), ("amplicon", 256, 1500, 6),
-                      ("cdna", 128, 3000, 4))
 PERIOD_ORACLE_READS = 8      # reads of each population held to the oracle
 # the reference's shipped adapters: the 84 bp 5' adapter (sense strand)
 # and the 25 bp 3' adapter (anti-sense strand)
@@ -315,6 +323,15 @@ SEED_OPS_CMP, SEED_OPS_SEARCH = {False: 10, True: 16}, {False: 6, True: 9}
 # chain_dp: int32 ops a predecessor lane scanned (get_con_score and the
 # compare with the running maximum) and a cell (csrc/chain_dp.cu's header)
 CHAIN_OPS_PER_LANE, CHAIN_OPS_PER_CELL = 29, 20
+# dtype_micro's rates by element type where not the int32 rate (the H100
+# SXM data sheet's dense peaks): float32 outside the tensor cores, and
+# bfloat16's only published rate, the tensor cores', which no elementwise
+# op reaches, so its bound is loose
+DTYPE_RATES = {"float32": 67e12, "bfloat16": 989e12}
+# SWAR's int32 operators an element a step in csrc/dtype_micro.cu: padd
+# once (7: two masks, add, mask, xor, mask, or) and pmax twice (10 each:
+# or, mask, sub, mask, shift, multiply, and, not, and, or)
+SWAR_OPS_PER_STEP = 27
 # phase 8's seed_hits checks: (label, reads, k, w, hpc, packed hits)
 SEED_CASES = [("slice chunk k=8 w=1 B=512 packed", "slice", 8, 1, False,
                True),
@@ -374,8 +391,11 @@ class Card:
         self.clock_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
         self.int_rate = INT32_PER_CLK_PER_SM * self.sms * self.clock_mhz * 1e6
 
-    def bound(self, ops: float, nbytes: float):
-        t_ops, t_bytes = ops / self.int_rate, nbytes / HBM_BYTES_PER_S
+    def bound(self, ops: float, nbytes: float, rate=None):
+        """(least ms, what bounds it) of ops at rate (default the int32
+        rate) and nbytes at the HBM rate."""
+        t_ops = ops / (rate or self.int_rate)
+        t_bytes = nbytes / HBM_BYTES_PER_S
         return (max(t_ops, t_bytes) * 1e3,
                 "operations" if t_ops >= t_bytes else "bytes")
 
@@ -435,8 +455,9 @@ class Checks:
                 or ENTRY_POINT.get(kernel) in self.only)
 
     def run(self, kernel, label, kern_fn, plain_fn, work, select=None,
-            reps=5, beside=None, library_fn=None):
-        """Compare, then time and bound (work() -> (integer ops, bytes));
+            reps=5, beside=None, library_fn=None, rate=None):
+        """Compare, then time and bound (work() -> (ops, bytes); the ops at
+        rate, default the int32 rate);
         beside: {name: fn} of other kernels of the same function (the first
         version, the other routes' kernels), each equal and timed beside as
         name_ms; with library_fn, the PyTorch call timed beside
@@ -461,11 +482,11 @@ class Checks:
         library_ms = cuda_ms(library_fn, reps) if library_fn else None
         self.record(kernel, label, err, ms, plain_ms, *work(),
                     main=label == MAIN_SHAPES[kernel], beside_ms=beside_ms,
-                    library_ms=library_ms)
+                    library_ms=library_ms, rate=rate)
 
     def record(self, kernel, label, err, ms, plain_ms, ops, nbytes, main,
-               beside_ms=None, library_ms=None):
-        bound_ms, by = self.card.bound(ops, nbytes)
+               beside_ms=None, library_ms=None, rate=None):
+        bound_ms, by = self.card.bound(ops, nbytes, rate)
         beside_ms = beside_ms or {}
         others = "".join(f" {k}={v:.4f} ({v / ms:.2f}x)"
                          for k, v in beside_ms.items())
@@ -473,7 +494,7 @@ class Checks:
                else "")
         print(f"check {kernel} {label}: max_abs_err={err} ms={ms:.4f}"
               f"{others}{lib} plain_ms={plain_ms:.2f} bound_ms="
-              f"{bound_ms:.4f} ({by}: {ops:.0f} int ops, {nbytes:.0f} "
+              f"{bound_ms:.4f} ({by}: {ops:.0f} ops, {nbytes:.0f} "
               f"bytes) share of bound {bound_ms / ms:.4f}", flush=True)
         row = self.rows.setdefault(kernel, {"max_abs_err": 0})
         row["max_abs_err"] = max(row["max_abs_err"], err)
@@ -865,43 +886,28 @@ def oracle_records(tasks):
         return list(pool.map(_oracle_one, tasks))
 
 
-def records_by_read(text: str, fmt: int = 1) -> dict:
-    """Records grouped by read name: FASTA (fmt 1, the default), FASTQ (3)
-    or one tabular line each (2, 4)."""
-    out = {}
-    lines = text.splitlines(keepends=True)
-    if fmt in (2, 4):
-        for line in lines:
-            name = line.split("\t", 1)[0]
-            out[name] = out.get(name, "") + line
-        return out
-    step = 4 if fmt == 3 else 2
-    for i in range(0, len(lines), step):
-        name = lines[i][1:].split("_rep", 1)[0]
-        out[name] = out.get(name, "") + "".join(lines[i:i + step])
-    return out
+def bench_mod():
+    """The port's bench (tidehunter_tpu_torch/evals/bench.py): the slice's
+    and the periods path's reads, their committed oracle digests and the
+    gate that holds every read's records to them."""
+    from tidehunter_tpu_torch.evals import bench
+
+    return bench
 
 
-def slice_reads():
-    """The slice's SLICE_READS synth_read reads (seed 42)."""
-    from tidehunter_tpu_torch.evals.synth import synth_read
-    from tidehunter_tpu_torch.io.fastx import FastxRecord
-
-    rng = np.random.default_rng(42)
-    return [FastxRecord(name=f"r2c2_{i}", comment="", seq=synth_read(rng))
-            for i in range(SLICE_READS)]
-
-
-def period_populations():
-    """Phase 5's populations (seed 43), one list of reads each."""
-    from tidehunter_tpu_torch.evals.synth import synth_read
-    from tidehunter_tpu_torch.io.fastx import FastxRecord
-
-    rng = np.random.default_rng(43)
-    return [[FastxRecord(name=f"{name}_{i}", comment="",
-                         seq=synth_read(rng, unit_len, copies))
-             for i in range(n)]
-            for name, n, unit_len, copies in PERIOD_POPULATIONS]
+def check_cell_digests(cell, reads, text):
+    """Every read's records of a timed run (text) against the cell's
+    committed oracle digests (bench_digests.json), and its input (all the
+    cell's reads) against the file's sha256; raises on a difference."""
+    B = bench_mod()
+    digests = B.load_digests()
+    t0 = time.perf_counter()
+    B.check_input(cell, reads, digests)
+    n = B.check_records(cell, reads, text, digests)
+    print(f"{cell} digests: all {n} reads' records of the timed run "
+          f"({text.count('>')} records) match the oracle's digests in "
+          f"{os.path.relpath(B.DIGESTS)}; input sha256 matches "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
 
 def phase_slice(tmp, dev):
@@ -913,8 +919,9 @@ def phase_slice(tmp, dev):
     from tidehunter_tpu_torch.pipeline.core import tidehunter_core
     from tidehunter_tpu_torch.utils.metrics import METRICS
 
-    n_reads = SLICE_READS
-    reads = slice_reads()
+    B = bench_mod()
+    n_reads = B.SLICE_READS
+    reads = B.slice_reads()
     fa = os.path.join(tmp, "r2c2.fa")
     with open(fa, "w") as f:
         f.writelines(f">{r.name}\n{r.seq}\n" for r in reads)
@@ -968,6 +975,7 @@ def phase_slice(tmp, dev):
     print(f"slice oracle: {len(check)} reads ({n_rec} records) "
           f"byte-identical with tidehunter_core ({oracle_s:.1f} s host)",
           flush=True)
+    check_cell_digests("slice", reads, sink.getvalue())
     return launches, (fa, sink.getvalue())
 
 
@@ -990,7 +998,8 @@ def floor_in_turns(fa, mtp, engine, dev):
             sync(dev)
             walls[name].append(time.perf_counter() - t0)
     floor.close()
-    ms = {k: [1e3 * w / SLICE_READS for w in v] for k, v in walls.items()}
+    n = bench_mod().SLICE_READS
+    ms = {k: [1e3 * w / n for w in v] for k, v in walls.items()}
     shares = [f / w for f, w in zip(walls["floor"], walls["slice"])]
     print("host floor in turns with the slice (ms/read [host]): floor "
           + " ".join(f"{x:.4f}" for x in ms["floor"]) + "; slice "
@@ -1102,19 +1111,22 @@ def check_band_route(shapes, routes, label):
 
 
 def phase_periods(tmp, dev):
-    """Short and long periods end to end (PERIOD_POPULATIONS): reads/s,
-    stage timers and launches of the timed run, the profile_dp shapes it
-    launched, the timed run once more under torch.profiler, and the timed
-    run's records of the first PERIOD_ORACLE_READS reads of each
-    population against tidehunter_core.  Returns the launches of the timed
-    run, K3's as its full-width rounds, and (input file, its output)."""
+    """Short and long periods end to end (the bench's
+    PERIOD_POPULATIONS): reads/s, stage timers and launches of the timed
+    run, the profile_dp shapes it launched, the timed run once more under
+    torch.profiler, the timed run's records of the first
+    PERIOD_ORACLE_READS reads of each population against tidehunter_core,
+    and every read's against the committed digests.  Returns the launches
+    of the timed run, K3's as its full-width rounds, and (input file, its
+    output)."""
     from tidehunter_tpu_torch import _kernels as K
     from tidehunter_tpu_torch.engine import Engine
     from tidehunter_tpu_torch.params import Params
     from tidehunter_tpu_torch.pipeline import runner
     from tidehunter_tpu_torch.utils.metrics import METRICS
 
-    pops = period_populations()
+    B = bench_mod()
+    pops = B.period_populations()
     reads = [r for pop in pops for r in pop]
     fa = os.path.join(tmp, "periods.fa")
     with open(fa, "w") as f:
@@ -1140,7 +1152,7 @@ def phase_periods(tmp, dev):
     snap = METRICS.snapshot()
     full = int(snap.get("msa_full_rounds", 0))
     mix = ", ".join(f"{n} of {u} bp x {c}"
-                    for _, n, u, c in PERIOD_POPULATIONS)
+                    for _, n, u, c in B.PERIOD_POPULATIONS)
     print(f"periods: {len(reads)} reads ({mix}) in {wall:.3f} s = "
           f"{len(reads) / wall:.2f} reads/s (warm run {warm_s:.3f} s); "
           f"consensus records {metrics.cons_records}; "
@@ -1172,7 +1184,7 @@ def phase_periods(tmp, dev):
             f"({lq},{lt}) B={b} {ms:.3f} ms"
             for (lq, lt, b), ms in zip(traced.glob, glob_ms)), flush=True)
 
-    got = records_by_read(sink.getvalue())
+    got = B.records_by_read(sink.getvalue())
     check = [r for pop in pops for r in pop[:PERIOD_ORACLE_READS]]
     t0 = time.perf_counter()
     want = oracle_records([(r, mtp, False) for r in check])
@@ -1181,7 +1193,7 @@ def phase_periods(tmp, dev):
     if bad:
         raise AssertionError(f"periods records differ from the oracle: "
                              f"{bad}")
-    for name, *_ in PERIOD_POPULATIONS:
+    for name, *_ in B.PERIOD_POPULATIONS:
         recs = [w for r, w in zip(check, want)
                 if r.name.startswith(name + "_")]
         print(f"periods oracle {name}: the timed run's records of its first "
@@ -1189,6 +1201,7 @@ def phase_periods(tmp, dev):
               f"records) byte-identical with tidehunter_core", flush=True)
     print(f"periods oracle: {len(check)} reads in {oracle_s:.1f} s over a "
           f"pool of host processes", flush=True)
+    check_cell_digests("periods", reads, sink.getvalue())
     return ({**launches, "profile_dp_full": full,
              "profile_dp_band": routes.get("band", 0)},
             (fa, sink.getvalue()))
@@ -1272,15 +1285,9 @@ def check_trace(path, label):
 def option_inputs(tmp):
     """Phase 6's inputs written under tmp: (each population's reads, its
     FASTA path, the -5/-3 arguments naming the adapter files)."""
-    from tidehunter_tpu_torch.evals.synth import synth_read
-    from tidehunter_tpu_torch.io.fastx import FastxRecord
-
-    rng = np.random.default_rng(42)
     pops = {"adapters": adapter_reads(np.random.default_rng(44),
                                       ADAPTER_READS),
-            "slice": [FastxRecord(name=f"r2c2_{i}", comment="",
-                                  seq=synth_read(rng))
-                      for i in range(SLICE_READS)]}
+            "slice": bench_mod().slice_reads()}
     files = {}
     for key, reads in pops.items():
         files[key] = os.path.join(tmp, f"options_{key}.fa")
@@ -1374,7 +1381,7 @@ def phase_options(tmp, dev):
         mtp = cli.parse_args([*argv, files[key]])[0]
         load_adapters(mtp)
         with open(out) as f:
-            recs = records_by_read(f.read(), mtp.out_fmt)
+            recs = bench_mod().records_by_read(f.read(), mtp.out_fmt)
         for r in pops[key][:OPTION_ORACLE_READS]:
             tasks.append((r, mtp, "--msa" in args))
             got.append((label, r.name, recs.get(r.name, "")))
@@ -1443,9 +1450,9 @@ def seed_batch(key, dev):
     from tidehunter_tpu_torch.ops.seeding_device import pad_batch
 
     if key == "slice":
-        seqs = [r.seq for r in slice_reads()[:512]]
+        seqs = [r.seq for r in bench_mod().slice_reads(512)]
     elif key == "cdna":
-        seqs = [r.seq for r in period_populations()[-1]]
+        seqs = [r.seq for r in bench_mod().period_populations()[-1]]
     elif key == "boundary":
         rng = np.random.default_rng(46)
         seqs = [synth_read(rng, 1150, 9) for _ in range(128)]
@@ -1544,7 +1551,7 @@ def check_chain(checks, dev):
 
     mtp = Params()
     bseqs = [encode(r.seq) if len(r.seq) >= mtp.k else None
-             for r in slice_reads()[:512]]
+             for r in bench_mod().slice_reads(512)]
     L = max(len(b) for b in bseqs if b is not None)
     arr, lens, _ = offload.pack_reads(bseqs, len(bseqs), L)
     ph, n, _ = SD.collect_hits_packed(
@@ -1655,8 +1662,8 @@ def phase_device_seed(tmp, dev, slice_run, periods_run):
                 raise AssertionError(f"device seed {label}: records differ "
                                      f"from phase 4's")
             print(f"device seed {label}: all {metrics.reads} reads' records "
-                  f"byte-identical with phase 4's host-seeded run",
-                  flush=True)
+                  f"byte-identical with phase 4's host-seeded run, every "
+                  f"read of which matches its oracle digest", flush=True)
             for k in need:
                 launches.setdefault(k, got[k])
         fa, want = periods_run
@@ -1676,7 +1683,8 @@ def phase_device_seed(tmp, dev, slice_run, periods_run):
         print(f"device seed periods {DEVICE_SEED_RUNS[1][0]}: "
               f"{metrics.reads} reads in {wall:.3f} s = "
               f"{metrics.reads / wall:.2f} reads/s (one run); launches "
-              f"{json.dumps(got)}; records byte-identical with phase 5's",
+              f"{json.dumps(got)}; records byte-identical with phase 5's, "
+              f"every read of which matches its oracle digest",
               flush=True)
     finally:
         for k, v in saved.items():
@@ -1855,7 +1863,8 @@ def phase_mesh(tmp, dev, slice_run):
                 raise AssertionError(f"mesh {label}: records differ from "
                                      f"phase 4's")
             print(f"mesh {label}: all {metrics.reads} reads' records "
-                  f"byte-identical with phase 4's run", flush=True)
+                  f"byte-identical with phase 4's run, every read of which "
+                  f"matches its oracle digest", flush=True)
         for k in MESH_ENV:
             os.environ.pop(k, None)
         phase_dist(tmp, fa, cli, dev)
@@ -2192,7 +2201,8 @@ def check_dtype_micro(checks):
     """dtype_micro's kernel against its plain version on the card, exactly
     (the float variants bit for bit), at the tool's default shape for every
     variant, both timed; a variant's bound counts OPS_PER_STEP ops an
-    element a step at the int32 rate and the three inputs read and two
+    element a step (SWAR_OPS_PER_STEP for SWAR) at its type's rate
+    (DTYPE_RATES, else the int32 rate) and the three inputs read and two
     outputs written once.  The summary keeps the int32 case."""
     from tidehunter_tpu_torch.evals import dtype_micro as DM
 
@@ -2204,12 +2214,13 @@ def check_dtype_micro(checks):
     B, L = DM.SHAPE
     for name, arrays in DM.inputs(B, L).items():
         x, y, a = DM.tensors(name, arrays, "cuda")
+        ops = SWAR_OPS_PER_STEP if name == "swar" else DM.OPS_PER_STEP
         checks.run("dtype_micro", f"{name} ({B},{L}) chain {DM.CHAIN}",
                    lambda: DM.step(name, x, y, a),
                    lambda: DM.step_plain(name, x, y, a),
-                   lambda: (DM.OPS_PER_STEP * DM.CHAIN * B * L,
+                   lambda: (ops * DM.CHAIN * B * L,
                             5 * B * L * x.element_size()),
-                   select=bits)
+                   select=bits, rate=DTYPE_RATES.get(name))
 
 
 def phase_evals(tmp, dev, checks):
@@ -2225,7 +2236,7 @@ def phase_evals(tmp, dev, checks):
     check_dtype_micro(checks)
     fq = os.path.join(tmp, "periods.fq")
     with open(fq, "w") as f:
-        for pop in period_populations():
+        for pop in bench_mod().period_populations():
             for r in pop:
                 f.write(f"@{r.name}\n{r.seq}\n+\n{'5' * len(r.seq)}\n")
     saved = {k: os.environ.pop(k, None) for k in MESH_ENV + ("TH_MSA",)}
@@ -2257,6 +2268,45 @@ def phase_evals(tmp, dev, checks):
     if not launches:
         raise AssertionError("dtype_micro's run launched no kernel")
     return launches
+
+
+BENCH_PHASE_REPS = 3     # phase 12's timed runs a cell
+
+
+def phase_bench():
+    """Phase 12: the port's bench by its main on the card, both cells at
+    BENCH_PHASE_REPS reps, every record held to the committed digests;
+    its stderr lines printed under [bench], then its JSON object on a line
+    of its own.  A gate failure, a wrong count of checked records or a
+    device that is not the card raises."""
+    import contextlib
+
+    B = bench_mod()
+    names = MESH_ENV + ("TH_MSA", "BENCH_READS", "BENCH_CHUNK", "BENCH_REPS")
+    saved = {k: os.environ.pop(k, None) for k in names}
+    os.environ["BENCH_REPS"] = str(BENCH_PHASE_REPS)
+    out, err = io.StringIO(), io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = B.main(["--device", "cuda"])
+    finally:
+        os.environ.pop("BENCH_REPS")
+        for k, v in saved.items():
+            if v is not None:
+                os.environ[k] = v
+    for line in err.getvalue().splitlines():
+        print(f"[bench] {line}", flush=True)
+    lines = out.getvalue().splitlines()
+    if rc != 0 or not lines:
+        raise AssertionError(f"bench: exit {rc}")
+    res = json.loads(lines[-1])
+    want = B.SLICE_READS + sum(p[1] for p in B.PERIOD_POPULATIONS)
+    if res["records_checked"] != want:
+        raise AssertionError(f"bench: {res['records_checked']} reads "
+                             f"checked, not {want}")
+    if res["device"] != torch.cuda.get_device_name(0):
+        raise AssertionError(f"bench: device {res['device']!r}")
+    print(lines[-1], flush=True)
 
 
 KERNEL_META = {
@@ -2385,6 +2435,9 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         launches["dtype_micro"] = phase_evals(tmp, dev, checks)
         print(f"evals phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    phase_bench()
+    print(f"bench phase: {time.perf_counter() - t0:.1f} s", flush=True)
 
     print(f"whole run: {time.perf_counter() - T0:.1f} s", flush=True)
     rows = []
