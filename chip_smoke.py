@@ -19,6 +19,10 @@ Phases, each printing its result on its own line:
      against the kernels of the other routes (profile_dp_on), each equal
      and timed in the same run; one region (B=1) at T=4096 W=256 on the
      first version, the warp kernel and the band kernel, in us a row;
+     K1 at the periods path's two largest launches ((1536,1536) B=1285,
+     (3072,3072) B=388) and the warp kernel at T=2048 B=8 on W = 128,
+     256 and 512 (the band kernel and the strips beside, profile_dp_on)
+     are held to their plain versions on their first 8 problems;
      myers_hw (the adapter search) against hw_batch_plain at the adapter
      path's shapes (4096 searches of the 84 and 25 bp adapters in ~1.1 kb
      doubled consensus), the single-copy path's (2048 searches of 32, 64,
@@ -55,20 +59,28 @@ Phases, each printing its result on its own line:
      byte-identical with tidehunter_core (run over a pool of host
      processes), and every read's (all 896) matching its committed oracle
      digest; the timed run once more under torch.profiler;
-  6. options: 1024 R2C2 reads with adapters (each unit the 84 bp 5'
-     adapter, a 450 bp insert and the reverse complement of the 25 bp 3'
-     adapter; 9 copies at 10% error, a quarter of the reads a single
-     copy) through the port's CLI with -5/-3 -f 2, -5/-3 -F and
-     -5/-3 -s -F, then the slice's reads with --polish 1 and --msa graph:
-     each run's reads/s and stage timers (--metrics), its launches and
-     hws_host, the problems of each myers_hw launch, and the records of
-     its first 8 reads byte-identical with tidehunter_core (over a pool
-     of host processes); the --msa graph run writes a --profile trace,
-     which must parse and hold the card's kernels; then the -5/-3 -f 2 run
-     once more, untimed, under torch.profiler (myers_hw's device ms and
-     the run's device busy share); then myers_hw against hw_batch_plain on
-     the inputs of the -5/-3 -f 2 run's largest launch (its main path: the
-     numbers the summary line keeps);
+  6. options: the 11 option runs of evals/bench.OPTION_RUNS, each
+     through the port's CLI on the card with its own input file and
+     argv: 1024 R2C2 reads with adapters (each unit the 84 bp 5' adapter,
+     a 450 bp insert and the reverse complement of the 25 bp 3' adapter;
+     9 copies at 10% error, a quarter of the reads a single copy) with
+     -5/-3 -f 2, -F and -s -F; the slice with --polish 1 and --msa graph;
+     the slice with -u -f 2; its first 512 reads with -M 3 -X 5 -O
+     6,30 -E 3,1 and -H -k 16 -w 5; the first 512 adapter reads with -a 0.99 -f 2;
+     the periods path's every second read (448) as gzipped FASTQ with -f
+     3 -l and with -f 4 -c 3 -e 0.2 -p 50 -P 2000 -m 100 -r 0.5: each
+     run's reads/s and stage timers (--metrics), its launches by kernel
+     and by profile_dp route (OPTION_NEED: what it must launch and must
+     not) and hws_host, the problems of each myers_hw launch, and every
+     read's records held to the committed oracle digests
+     (evals/option_digests.json, 8576 reads, by the bench's gate: the
+     input's sha256, the records split by the run's -f and -u, no stray
+     record, no read missing); the --msa graph run writes a --profile
+     trace, which must parse and hold the card's kernels; then the
+     -5/-3 -f 2 run once more, untimed, under torch.profiler (myers_hw's
+     device ms and the run's device busy share); then myers_hw against
+     hw_batch_plain on the inputs of the -5/-3 -f 2 run's largest launch
+     (its main path: the numbers the summary line keeps);
   7. the full-width rung: regions that skip or escalate past the band
      window must equal the host mirror banded_profile_consensus;
   8. device seeding and chaining (TH_DEVICE_SEED, TH_DEVICE_CHAIN):
@@ -143,11 +155,12 @@ Phases, each printing its result on its own line:
      the SWAR variant, each bound at its type's rate (the kernel line's
      dtype_micro row: its int32 case; its launches: the tool's own run);
  12. the bench (tidehunter_tpu_torch/evals/bench.py) by its main on the
-     card, BENCH_PHASE_REPS timed runs of the slice and the periods path
-     after a warm run each, every read's records of both (1920 reads)
-     held to the committed digests and every rep to the first: its stderr
-     lines printed under [bench], then its JSON object on a line of its
-     own.
+     card, BENCH_PHASE_REPS timed runs of the slice, the periods path and
+     the ada_f2 option cell after a warm run each, every read's records
+     of all three (2944 reads) held to the committed digests and every
+     rep to the first: its stderr lines printed under [bench] (the host's
+     CPU model, load and probe among them), then its JSON object on a
+     line of its own.
 The line before the last is a JSON object with every kernel's launches,
 error, times and bound (the larger of its integer ops over the card's int32
 rate and its bytes over 3.35 TB/s; a profile DP's ops count the cells the
@@ -216,7 +229,13 @@ WF_CASES = [("iden_only", 2048, 512, 512), ("iden_only", 4096, 512, 512),
             ("ext", 1024, 512, 256),
             ("iden_only", 8, 6144, 6144), ("tleft", 8, 8192, 8192),
             ("ext", 8, 512, 4096), ("ext", 8, 4096, 8192),
-            ("tleft", 507, 128, 128), ("tleft", 1, 256, 256)]
+            ("tleft", 507, 128, 128), ("tleft", 1, 256, 256),
+            ("iden_only", 1285, 1536, 1536), ("iden_only", 388, 3072, 3072)]
+# the periods path's two largest K1 launches (phase 5: 17.263 of K1's 21.5
+# ms on its trace), held to the plain version on their first PLAIN_FIRST
+# problems only (the plain K1 takes ~13.5 s at (6144,6144) B=8)
+PLAIN_FIRST = 8
+FIRST_ONLY = {("iden_only", 1285, 1536, 1536), ("iden_only", 388, 3072, 3072)}
 # the device walks' K1 launches on the slice under a one-card mesh
 # (phase 9): with TH_HOST_ALN_CAP=0 every walk step, the largest launch
 # (128,128) B=507 (the first round of the first chunk); at the default cap
@@ -233,11 +252,15 @@ MSA_CASES = [(640, 128, 512, 450), (640, 128, 8, 450), (640, 128, 1, 450),
              (4096, 128, 64, 3000), (4096, 256, 64, 3000),
              (4096, 512, 8, 3000), (4096, None, 2, 3000),
              (4096, 256, 8, 3000), (4096, 256, 121, 3000),
-             (4096, 128, 8, 3000), (4096, 128, 125, 3000)]
+             (4096, 128, 8, 3000), (4096, 128, 125, 3000),
+             (2048, 128, 8, 1500), (2048, 256, 8, 1500),
+             (2048, 512, 8, 1500)]
 # the band kernel's launch sizes beyond B=64 (the protocol's B=8, the
-# periods path's largest): profile_bt reads their planes as it reads the
-# B=64 ones checked above, so only profile_dp is checked there
-DP_ONLY = MSA_CASES[-4:]
+# periods path's largest) and the warp kernel's T=2048 rungs at the
+# protocol's B=8 (174 launches; the band kernel and the strips timed
+# beside): profile_bt reads their planes as it reads the shapes checked
+# above, so only profile_dp is checked there
+DP_ONLY = set(MSA_CASES[-7:])
 # the entry point whose route each kernel of the summary is (--kernels
 # profile_dp checks them all)
 ENTRY_POINT = {"profile_dp_band": "profile_dp"}
@@ -278,15 +301,30 @@ TRACE_NAMES = {"wf_global_kernel": "wf_global", "wf_ext_kernel": "wf_ext",
                "profile_bt_warp": "profile_bt",
                "myers_hw_kernel": "myers_hw"}
 PERIOD_ORACLE_READS = 8      # reads of each population held to the oracle
-# the reference's shipped adapters: the 84 bp 5' adapter (sense strand)
-# and the 25 bp 3' adapter (anti-sense strand)
-FIVE = ("AATGATACGGCGACCACCGAGATCTACACTCGACTAGTCGTCGGCAGCGTCAGATGTGTATAA"
-        "GAGACAGTGAATTCTGGTGGG")
-THREE = "AAGCAGTGGTATCAACGCAGAGTAC"
-ADAPTER_READS = 1024         # phase 6's adapter population
 SC_QLENS = (32, 64, 65, 128)  # single-copy search shapes of phase 2
 LONG_READS, LONG_GAP = 16, 2300  # phase 2's long row: 16 reads of ~12 kb
-OPTION_ORACLE_READS = 8      # reads of each option run held to the oracle
+# phase 6: the kernels each option run (evals/bench.OPTION_RUNS) must
+# launch, those it must not, and the profile_dp routes it must take
+CONSENSUS_KERNELS = ("wf_global", "wf_ext", "profile_dp", "profile_bt")
+ADAPTER_NEED = (CONSENSUS_KERNELS + ("myers_hw",), (), ("warp",))
+OPTION_NEED = {"ada_f2": ADAPTER_NEED, "ada_F": ADAPTER_NEED,
+               "ada_sF": ADAPTER_NEED, "ada_a": ADAPTER_NEED,
+               "polish1": (CONSENSUS_KERNELS, ("myers_hw",), ("warp",)),
+               # the MSA on the host graph-POA
+               "msa_graph": (("wf_global", "wf_ext"),
+                             ("profile_dp", "profile_bt"), ()),
+               # -u writes units, no consensus: K1 resolves the partition
+               # walks' steps past TH_HOST_ALN_CAP (one launch, in the
+               # slice's second chunk)
+               "unit_f2": (("wf_global",), ("wf_ext", "profile_dp",
+                                            "profile_bt"), ()),
+               "scoring": (CONSENSUS_KERNELS, (), ("warp",)),
+               "seeding": (CONSENSUS_KERNELS, (), ("warp",)),
+               # K3 at full width on the 60 bp units, the band kernel on
+               # the 3000 bp units' 4096 bucket; -P 2000 drops those
+               "fq_f3_l": (CONSENSUS_KERNELS, (), ("strips", "warp",
+                                                   "band")),
+               "fq_f4_filt": (CONSENSUS_KERNELS, (), ("strips", "warp"))}
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
 # int32 results per clock per SM: 64 on the INT pipe (CUDA C++ Programming
@@ -455,9 +493,10 @@ class Checks:
                 or ENTRY_POINT.get(kernel) in self.only)
 
     def run(self, kernel, label, kern_fn, plain_fn, work, select=None,
-            reps=5, beside=None, library_fn=None, rate=None):
+            reps=5, beside=None, library_fn=None, rate=None, first=None):
         """Compare, then time and bound (work() -> (ops, bytes); the ops at
-        rate, default the int32 rate);
+        rate, default the int32 rate); with first, plain_fn computes the
+        first `first` problems alone and the outputs are compared there;
         beside: {name: fn} of other kernels of the same function (the first
         version, the other routes' kernels), each equal and timed beside as
         name_ms; with library_fn, the PyTorch call timed beside
@@ -466,11 +505,12 @@ class Checks:
             return
         beside = beside or {}
         sel = select or (lambda x: x)
+        cut = (lambda x: tuple(y[:first] for y in x)) if first else sel
         plain_ms, want = timed(plain_fn)
-        got, want = sel(kern_fn()), sel(want)
+        got, want = cut(kern_fn()), sel(want)
         err = max_err(got, want)
         for name, fn in beside.items():
-            e = max_err(sel(fn()), want)
+            e = max_err(cut(fn()), want)
             if e > TOL:
                 raise AssertionError(f"{kernel} {label} ({name}): "
                                      f"max_abs_err {e}")
@@ -480,7 +520,8 @@ class Checks:
         beside_ms = {f"{name}_ms": cuda_ms(fn, reps)
                      for name, fn in beside.items()}
         library_ms = cuda_ms(library_fn, reps) if library_fn else None
-        self.record(kernel, label, err, ms, plain_ms, *work(),
+        self.record(kernel, label + (f" (plain: first {first})" if first
+                                     else ""), err, ms, plain_ms, *work(),
                     main=label == MAIN_SHAPES[kernel], beside_ms=beside_ms,
                     library_ms=library_ms, rate=rate)
 
@@ -642,17 +683,23 @@ def phase_kernels(checks, dev, lanes=True):
         # t_left requests (oversize partition windows) span qle 0..qlen+1
         qle = (torch.zeros_like(ql) if iden_only else
                (torch.rand(B, device=dev) * (ql + 2).float()).int())
+        n = PLAIN_FIRST if (kind, B, LQ, LT) in FIRST_ONLY else B
         checks.run("wf_global", label,
                    lambda: WF.global_batch(q, ql, t, tl, qle, sc, iden_only),
-                   lambda: WF.global_plain(q, ql, t, tl, qle, sc,
-                                           not iden_only),
+                   lambda: WF.global_plain(q[:n], ql[:n], t[:n], tl[:n],
+                                           qle[:n], sc, not iden_only),
                    lambda: (OPS_PER_CELL[f"wf_global {kind}"] * cells,
-                            _nbytes(q, ql, t, tl, qle) + 2 * B * 4))
+                            _nbytes(q, ql, t, tl, qle) + 2 * B * 4),
+                   first=n if n < B else None)
 
     # one unit round of a region batch: the second unit against the
-    # profile of the first
-    msa = MD.DeviceMSA(2, 4, 4, 2, gap_open2=24, gap_ext2=1, device=dev)
-    for T, W, B, L in MSA_CASES:
+    # profile of the first (skipped when no profile kernel is checked, as
+    # on another tree's wavefront: --kernels wf_global --port)
+    wants_msa = any(checks.wants(k) for k in (
+        "profile_dp", "profile_dp_full", "profile_dp_band", "profile_bt"))
+    msa = (MD.DeviceMSA(2, 4, 4, 2, gap_open2=24, gap_ext2=1, device=dev)
+           if wants_msa else None)
+    for T, W, B, L in MSA_CASES if wants_msa else ():
         args, live = msa_round(rng, msa, T, W, B, L, dev)
         unit, qlen, ncol, sub, wl, wdel, wl2, wdel2 = args[:8]
         label = f"T={T} W={W or 'full'} B={B}"
@@ -671,7 +718,7 @@ def phase_kernels(checks, dev, lanes=True):
         if route != "warp":
             beside["first_version"] = (
                 lambda: MD.profile_dp(*args, kernel="first"))
-        if T == 4096 and W in MD.BAND_WIDTHS:
+        if T >= 2048 and W in MD.BAND_WIDTHS:
             for other in MD.DP_ROUTES:
                 if other != route:
                     beside[other] = (lambda other=other: MD.profile_dp(
@@ -713,7 +760,8 @@ def myers_cases(rng):
     from tidehunter_tpu_torch.io.codec import decode
     from tidehunter_tpu_torch.ops.myers_device import encode5
 
-    adapters = [FIVE, revcomp(THREE), revcomp(FIVE), THREE]
+    B = bench_mod()
+    adapters = [B.FIVE, revcomp(B.THREE), revcomp(B.FIVE), B.THREE]
     codes = [encode5(a) for a in adapters]
     cons = []
     for _ in range(1024):
@@ -1207,36 +1255,6 @@ def phase_periods(tmp, dev):
             (fa, sink.getvalue()))
 
 
-# phase 6: (label, population, CLI arguments) of each option run
-OPTION_RUNS = (("-5 -3 -f 2", "adapters", ["-f", "2"]),
-               ("-5 -3 -F", "adapters", ["-F"]),
-               ("-5 -3 -s -F", "adapters", ["-s", "-F"]),
-               ("--polish 1", "slice", ["--polish", "1"]),
-               ("--msa graph", "slice", ["--msa", "graph"]))
-
-
-def adapter_reads(rng, n):
-    """R2C2 reads with adapters: each unit the 5' adapter, a 450 bp insert
-    and the reverse complement of the 3' adapter, 9 copies at 10% error
-    (every fourth read a single copy) between random 150 bp flanks."""
-    from tidehunter_tpu_torch.io.codec import decode
-    from tidehunter_tpu_torch.io.fastx import FastxRecord
-    from tidehunter_tpu_torch.ops.myers_device import encode5
-
-    five, three_rc = encode5(FIVE), encode5(revcomp(THREE))
-    out = []
-    for i in range(n):
-        unit = np.concatenate([five, rng.integers(0, 4, 450).astype(
-            np.uint8), three_rc])
-        parts = [rng.integers(0, 4, 150).astype(np.uint8)]
-        parts += [_mutate(rng, unit, 0.1) for _ in range(1 if i % 4 == 3
-                                                          else 9)]
-        parts.append(rng.integers(0, 4, 150).astype(np.uint8))
-        out.append(FastxRecord(name=f"ada_{i}", comment="",
-                               seq=decode(np.concatenate(parts))))
-    return out
-
-
 class MyersLaunches:
     """Records the problem count of every myers_hw launch of hw_batch
     while active, and the inputs of the largest (the calls themselves are
@@ -1282,125 +1300,110 @@ def check_trace(path, label):
                              f"no kernel event")
 
 
-def option_inputs(tmp):
-    """Phase 6's inputs written under tmp: (each population's reads, its
-    FASTA path, the -5/-3 arguments naming the adapter files)."""
-    pops = {"adapters": adapter_reads(np.random.default_rng(44),
-                                      ADAPTER_READS),
-            "slice": bench_mod().slice_reads()}
-    files = {}
-    for key, reads in pops.items():
-        files[key] = os.path.join(tmp, f"options_{key}.fa")
-        with open(files[key], "w") as f:
-            f.writelines(f">{r.name}\n{r.seq}\n" for r in reads)
-    ada = []
-    for name, seq in (("5p", FIVE), ("3p", THREE)):
-        ada += ["-5" if name == "5p" else "-3", os.path.join(tmp, name)]
-        with open(ada[-1], "w") as f:
-            f.write(f">{name}\n{seq}\n")
-    return pops, files, ada
-
-
 def myers_main_launch(dev):
     """The inputs of the largest myers_hw launch of phase 6's first run
-    (-5 -3 -f 2, its main path), from one untimed run through the CLI:
+    (ada_f2, its main path), from one untimed run through the CLI:
     --kernels myers_hw times that launch on each tree."""
     from tidehunter_tpu_torch import cli
 
-    label, key, args = OPTION_RUNS[0]
+    B = bench_mod()
+    run = B.OPTION_RUNS[0][0]
     with tempfile.TemporaryDirectory() as tmp:
-        _, files, ada = option_inputs(tmp)
+        path = B.write_input(run, B.cell_reads(run), tmp)
         with MyersLaunches() as rec:
-            rc = cli.main([*ada, *args, "--device", dev.type, "-o",
-                           os.path.join(tmp, "main.out"), files[key]])
+            rc = cli.main([*B.option_argv(run, tmp), "--device", dev.type,
+                           "-o", os.path.join(tmp, "main.out"), path])
     if rc != 0:
-        raise AssertionError(f"options {label}: exit {rc}")
+        raise AssertionError(f"options {run}: exit {rc}")
     return rec.largest
 
 
 def phase_options(tmp, dev):
-    """Each OPTION_RUNS run through the port's CLI on the card: reads/s,
-    stage timers (--metrics), launches and hws_host; the adapter runs
-    must launch myers_hw, --polish 1 the profile kernels, --msa graph no
-    profile DP (its MSA is the host graph-POA), and its --profile trace
-    must hold the card's kernels; the first run once more under
-    torch.profiler (trace_run), untimed; the records of the first
-    OPTION_ORACLE_READS reads of each run must equal tidehunter_core's.
-    Returns myers_hw's launches in the first run (its main path) and the
-    inputs of that run's largest launch."""
+    """Each option run of evals/bench.OPTION_RUNS through the port's CLI on
+    the card: reads/s, stage timers (--metrics), launches by kernel and by
+    profile_dp route, hws_host; each must launch the kernels and routes of
+    OPTION_NEED and none that it forbids; the msa_graph run writes a
+    --profile trace, which must hold the card's kernels; then every read's
+    records of every run held to the committed oracle digests
+    (evals/option_digests.json, by bench's gate: the input's sha256, the
+    records split by the run's -f and -u, no stray record, no read
+    missing); then the first run once more under torch.profiler
+    (trace_run), untimed.  Returns myers_hw's launches in the first run
+    (its main path) and the inputs of that run's largest launch."""
     from tidehunter_tpu_torch import _kernels as K
     from tidehunter_tpu_torch import cli
-    from tidehunter_tpu_torch.pipeline.runner import load_adapters
 
-    pops, files, ada = option_inputs(tmp)
+    B = bench_mod()
+    digests = B.load_digests(B.OPTION_DIGESTS)
     out, met = os.path.join(tmp, "options.out"), os.path.join(tmp,
                                                               "options.json")
     trace = os.path.join(tmp, "options_trace.json")
-    tasks, got, main = [], [], None
-    for label, key, args in OPTION_RUNS:
-        argv = (ada if key == "adapters" else []) + args
-        prof = ["--profile", trace] if "--msa" in args else []
+    pops, main, checked = {}, None, 0
+    for run, pop, n, argv in B.OPTION_RUNS:
+        if pop not in pops:
+            pops[pop] = B.population(pop)
+        reads = pops[pop][:n]
+        path = B.write_input(run, reads, tmp)
+        B.check_input(run, reads, digests, B.read_input(path))
+        mtp, _ = B.option_params(run, tmp)
+        prof = ["--profile", trace] if run == "msa_graph" else []
         K.reset_launches()
         with MyersLaunches() as rec:
-            rc = cli.main([*argv, *prof, "--device", dev.type, "-o", out,
-                           "--metrics", met, files[key]])
+            rc = cli.main([*B.option_argv(run, tmp), *prof, "--device",
+                           dev.type, "-o", out, "--metrics", met, path])
             sync(dev)
         launches = {k: v for k, v in K.launches().items() if v}
+        routes = dict(K.PROFILE_DP.routes)
         if rc != 0:
-            raise AssertionError(f"options {label}: exit {rc}")
+            raise AssertionError(f"options {run}: exit {rc}")
         with open(met) as f:
             snap = json.load(f)
-        print(f"options {label}: {snap['reads']} reads ({key}) in "
-              f"{snap['wall_s']} s = {snap['reads_per_s']} reads/s; "
-              f"consensus records {snap['cons_records']}; launches "
-              f"{json.dumps(launches)}; hws_host "
+        print(f"options {run} ({' '.join(argv)}): {snap['reads']} reads "
+              f"({pop}) in {snap['wall_s']} s = {snap['reads_per_s']} "
+              f"reads/s; records {snap['cons_records']}; launches "
+              f"{json.dumps(launches)}; profile_dp by route "
+              f"{json.dumps(routes)}; hws_host "
               f"{int(snap.get('hws_host', 0))}"
               f"{' (under --profile)' if prof else ''}", flush=True)
-        print(f"options {label} stages: " + " ".join(
+        print(f"options {run} stages: " + " ".join(
             f"{k}={v}" for k, v in sorted(snap.items())), flush=True)
         if prof:
-            check_trace(trace, label)
-        if key == "adapters":
-            print(f"options {label} myers_hw problems a launch: "
-                  f"{rec.sizes}", flush=True)
-            if main is None:
-                main = (launches.get("myers_hw", 0), rec.largest)
-            need = ["myers_hw"]
-        else:
-            need = ["wf_global", "wf_ext"]
-        if "--polish" in args:
-            need += ["profile_dp", "profile_bt"]
+            check_trace(trace, run)
+        if rec.sizes:
+            print(f"options {run} myers_hw problems a launch: {rec.sizes}",
+                  flush=True)
+        if main is None:
+            main = (launches.get("myers_hw", 0), rec.largest)
+        need, forbid, need_routes = OPTION_NEED[run]
         idle = [k for k in need if not launches.get(k)]
+        idle += [f"profile_dp route {r}" for r in need_routes
+                 if not routes.get(r)]
         if idle:
-            raise AssertionError(f"options {label}: not launched: {idle}")
-        if "--msa" in args and launches.get("profile_dp"):
-            raise AssertionError("options --msa graph ran the profile DP")
-        if snap["reads"] != len(pops[key]) or snap["cons_records"] <= 0:
-            raise AssertionError(f"options {label}: {snap['cons_records']} "
+            raise AssertionError(f"options {run}: not launched: {idle}")
+        ran = [k for k in forbid if launches.get(k)]
+        if ran:
+            raise AssertionError(f"options {run}: launched {ran}")
+        if snap["reads"] != len(reads) or snap["cons_records"] <= 0:
+            raise AssertionError(f"options {run}: {snap['cons_records']} "
                                  f"records for {snap['reads']} reads")
-        mtp = cli.parse_args([*argv, files[key]])[0]
-        load_adapters(mtp)
+        t0 = time.perf_counter()
         with open(out) as f:
-            recs = bench_mod().records_by_read(f.read(), mtp.out_fmt)
-        for r in pops[key][:OPTION_ORACLE_READS]:
-            tasks.append((r, mtp, "--msa" in args))
-            got.append((label, r.name, recs.get(r.name, "")))
+            text = f.read()
+        k = B.check_records(run, reads, text, digests, mtp.out_fmt,
+                            mtp.only_unit)
+        checked += k
+        print(f"options {run} digests: all {k} reads' records "
+              f"({text.count(chr(10))} lines) match the oracle's digests in "
+              f"{os.path.relpath(B.OPTION_DIGESTS)}; input sha256 matches "
+              f"({time.perf_counter() - t0:.2f} s)", flush=True)
+    print(f"options digests: {checked} reads of {len(B.OPTION_RUNS)} runs "
+          f"held", flush=True)
     # the main path's run once more, untimed, under torch.profiler
-    label, key, args = OPTION_RUNS[0]
-    trace_run(lambda: cli.main([*ada, *args, "--device", dev.type, "-o", out,
-                                files[key]]), dev, f"options {label}")
-    t0 = time.perf_counter()
-    want = oracle_records(tasks)
-    bad = [f"{label}: {name}" for (label, name, g), w in zip(got, want)
-           if g != w]
-    if bad:
-        raise AssertionError(f"options records differ from the oracle: "
-                             f"{bad}")
-    print(f"options oracle: the first {OPTION_ORACLE_READS} reads of each "
-          f"run ({sum(w.count(chr(10)) for w in want)} lines) "
-          f"byte-identical with tidehunter_core ("
-          f"{time.perf_counter() - t0:.1f} s over a pool of host "
-          f"processes)", flush=True)
+    run = B.OPTION_RUNS[0][0]
+    path = B.write_input(run, B.cell_reads(run), tmp)
+    trace_run(lambda: cli.main([*B.option_argv(run, tmp), "--device",
+                                dev.type, "-o", out, path]), dev,
+              f"options {run}")
     return main
 
 
@@ -2271,14 +2274,18 @@ def phase_evals(tmp, dev, checks):
 
 
 BENCH_PHASE_REPS = 3     # phase 12's timed runs a cell
+# phase 12's cells: the bench's two and the option cell of myers_hw's main
+# path
+BENCH_PHASE_CELLS = ("slice", "periods", "ada_f2")
 
 
 def phase_bench():
-    """Phase 12: the port's bench by its main on the card, both cells at
-    BENCH_PHASE_REPS reps, every record held to the committed digests;
+    """Phase 12: the port's bench by its main on the card, BENCH_PHASE_CELLS
+    at BENCH_PHASE_REPS reps, every record held to the committed digests;
     its stderr lines printed under [bench], then its JSON object on a line
-    of its own.  A gate failure, a wrong count of checked records or a
-    device that is not the card raises."""
+    of its own.  A gate failure, a wrong count of checked records, a cell
+    without its median, a missing host key or a device that is not the
+    card raises."""
     import contextlib
 
     B = bench_mod()
@@ -2288,7 +2295,8 @@ def phase_bench():
     out, err = io.StringIO(), io.StringIO()
     try:
         with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
-            rc = B.main(["--device", "cuda"])
+            rc = B.main(["--device", "cuda", "--cells",
+                         ",".join(BENCH_PHASE_CELLS)])
     finally:
         os.environ.pop("BENCH_REPS")
         for k, v in saved.items():
@@ -2300,10 +2308,18 @@ def phase_bench():
     if rc != 0 or not lines:
         raise AssertionError(f"bench: exit {rc}")
     res = json.loads(lines[-1])
-    want = B.SLICE_READS + sum(p[1] for p in B.PERIOD_POPULATIONS)
+    want = sum(B.OPTIONS[c][1] if c in B.OPTIONS else B.SLICE_READS
+               if c == "slice" else sum(p[1] for p in B.PERIOD_POPULATIONS)
+               for c in BENCH_PHASE_CELLS)
     if res["records_checked"] != want:
         raise AssertionError(f"bench: {res['records_checked']} reads "
                              f"checked, not {want}")
+    medians = {"slice": res["median"], "periods": res["periods_median"],
+               **{c: o["median"] for c, o in res["options"].items()}}
+    if any(medians.get(c) is None for c in BENCH_PHASE_CELLS):
+        raise AssertionError(f"bench: medians {medians}")
+    if set(res["host"]) != {"cpu_model", "cores", "load_1m", "probe_ms"}:
+        raise AssertionError(f"bench: host {res['host']}")
     if res["device"] != torch.cuda.get_device_name(0):
         raise AssertionError(f"bench: device {res['device']!r}")
     print(lines[-1], flush=True)
