@@ -4,6 +4,7 @@
     # two commits' kernels on one card, in turns (A, B, B, A)
     python3 chip_smoke.py --kernels wf_ext,profile_bt --port OTHER_CHECKOUT
     python3 chip_smoke.py --kernels seed_hits,chain_dp
+    python3 chip_smoke.py --kernels wf_dtype_probe,dtype_micro [--port DIR]
 
 Phases, each printing its result on its own line:
   1. card and build: the card's name and power limit (nvidia-smi), the
@@ -32,8 +33,11 @@ Phases, each printing its result on its own line:
      search over every target column and min(end + 1, m + ed) SHW
      columns;
   3. the wavefront dtype probe: wf_dtype_probe against probe_plain, exact,
-     in all four variants at (T=512, BT=128) and (T=200, BT=7), then the
-     probe's own timing table at its defaults;
+     in all four variants in chains of 8 calls at (T=512, BT=128),
+     (T=200, BT=7) and the ragged (T=201, BT=3) and (T=203, BT=5), then
+     the probe's own timing table at its defaults, each variant bound at
+     35 ops a 32-bit word (a packed int16 word holds 2 cells, an int8 word
+     4);
   4. the default consensus path end to end: 1024 synthetic R2C2 reads
      (evals/bench.slice_reads: synth_read, seed 42) through
      pipeline.runner with the port's engine on cuda, chunks of 512, one
@@ -152,8 +156,11 @@ Phases, each printing its result on its own line:
      constant quality at 2 reps (a cut from the tool's 3) and mesh sizes
      1, 2, 4 and 8 on the one card.  Before the tools, dtype_micro's
      kernel against its plain version, exactly, at each element type and
-     the SWAR variant, each bound at its type's rate (the kernel line's
-     dtype_micro row: its int32 case; its launches: the tool's own run);
+     the SWAR variant, at the tool's shape and at a ragged (7, 1001), each
+     bound at 5 ops a 32-bit word (an int16 word holds 2 elements, an
+     int8 word 4, a bfloat16x2 word 2) at its pipe's issue rate (the
+     kernel line's dtype_micro row: its int32 case; its launches: the
+     tool's own run);
  12. the bench (tidehunter_tpu_torch/evals/bench.py) by its main on the
      card, BENCH_PHASE_REPS timed runs of the slice, the periods path and
      the ada_f2 option cell after a warm run each, every read's records
@@ -288,8 +295,9 @@ MAIN_SHAPES = {"wf_global": "iden_only (512,512) B=4096",
 # the choice of ops/wavefront.ext_lanes
 EXT_LANES_SWEEP = ((512, 640), (512, 256))
 LANES = (1, 2, 4)
-# the probe's comparison shapes: its defaults and an odd tile
-PROBE_CASES = [(512, 128), (200, 7)]
+# the probe's comparison shapes: its defaults, an odd tile, and two ragged
+# ones (odd T, T no multiple of 4: lane T-1 inside its thread's lanes)
+PROBE_CASES = [(512, 128), (200, 7), (201, 3), (203, 5)]
 FLOOR_TURNS = 3      # phase 4's runs of the host floor and the slice each
 SLICE_KERNELS = ("wf_global", "wf_ext", "profile_dp", "profile_bt")
 # kernel names in a trace -> the kernel (profile_dp has four)
@@ -361,11 +369,27 @@ SEED_OPS_CMP, SEED_OPS_SEARCH = {False: 10, True: 16}, {False: 6, True: 9}
 # chain_dp: int32 ops a predecessor lane scanned (get_con_score and the
 # compare with the running maximum) and a cell (csrc/chain_dp.cu's header)
 CHAIN_OPS_PER_LANE, CHAIN_OPS_PER_CELL = 29, 20
-# dtype_micro's rates by element type where not the int32 rate (the H100
-# SXM data sheet's dense peaks): float32 outside the tensor cores, and
-# bfloat16's only published rate, the tensor cores', which no elementwise
-# op reaches, so its bound is loose
-DTYPE_RATES = {"float32": 67e12, "bfloat16": 989e12}
+# dtype_micro's per-op issue rates by element type, results a clock an SM
+# (x the SMs x the maximum SM clock: 132 x 1980 MHz on the H100 SXM), from
+# the CUDA C++ Programming Guide's throughput table for cc 9.0.  float32
+# add and multiply: 128 a clock an SM (scalar; 33.45 T ops/s; the step's
+# max and compare taken at the same rate, so the bound stays a least
+# time), where the data sheet's 67 TFLOP/s counts an FMA as two ops and
+# this step has none.  bfloat16: 256 results a clock an SM of the 16-bit
+# float add / multiply, 128 bf16x2 instructions (HFMA2.BF16, HMNMX2.BF16,
+# HSET2.BF16), 33.45 T x2 ops/s, where the data sheet's 989 TFLOP/s is
+# the tensor cores', which no elementwise op reaches.  The integer
+# variants use INT32_PER_CLK_PER_SM, a packed s16x2 or s8x4 word being one
+# 32-bit op.  A variant's ops count 32-bit words (elements / LANES_PER_WORD).
+FP32_PER_CLK_PER_SM = 128
+BF16X2_PER_CLK_PER_SM = 128
+DTYPE_PER_CLK_PER_SM = {"float32": FP32_PER_CLK_PER_SM,
+                        "bfloat16": BF16X2_PER_CLK_PER_SM}
+# elements a 32-bit word of dtype_micro's packed kernel
+LANES_PER_WORD = {"int32": 1, "int16": 2, "int8": 4, "float32": 1,
+                  "bfloat16": 2, "swar": 1}
+# dtype_micro's ragged check: a byte count no multiple of 16
+DTYPE_RAGGED = (7, 1001)
 # SWAR's int32 operators an element a step in csrc/dtype_micro.cu: padd
 # once (7: two masks, add, mask, xor, mask, or) and pmax twice (10 each:
 # or, mask, sub, mask, shift, multiply, and, not, and, or)
@@ -428,6 +452,10 @@ class Card:
         self.sms = torch.cuda.get_device_properties(0).multi_processor_count
         self.clock_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
         self.int_rate = INT32_PER_CLK_PER_SM * self.sms * self.clock_mhz * 1e6
+
+    def rate(self, per_clk_per_sm: int) -> float:
+        """Ops a second at per_clk_per_sm results a clock an SM."""
+        return per_clk_per_sm * self.sms * self.clock_mhz * 1e6
 
     def bound(self, ops: float, nbytes: float, rate=None):
         """(least ms, what bounds it) of ops at rate (default the int32
@@ -517,6 +545,7 @@ class Checks:
         if err > TOL:
             raise AssertionError(f"{kernel} {label}: max_abs_err {err}")
         ms = cuda_ms(kern_fn, reps)
+        self.last_ms = ms
         beside_ms = {f"{name}_ms": cuda_ms(fn, reps)
                      for name, fn in beside.items()}
         library_ms = cuda_ms(library_fn, reps) if library_fn else None
@@ -866,14 +895,18 @@ def phase_probe(checks, dev) -> int:
     launches = K.WF_DTYPE_PROBE.launches
     for line in P.report(T, BT, ms):
         print(f"probe T={T} BT={BT}: {line}", flush=True)
-    # every variant runs the same source ops a cell; tb is read and out
-    # written once, at the state type's width
-    ops = P.OPS_PER_CELL * BT * T * P.n_rows(T)
+    # OPS_PER_CELL source ops a 32-bit word: an int32 word is a cell, a
+    # packed int16 word 2, an int8 word 4; tb is read and out written
+    # once, at the state type's width
+    cells = BT * T * P.n_rows(T)
+    ops = P.OPS_PER_CELL * cells
     for name, (dt, _) in P.VARIANTS.items():
-        bound_ms, by = checks.card.bound(ops, 2 * BT * T * dt.itemsize)
+        bound_ms, by = checks.card.bound(ops * dt.itemsize / 4,
+                                         2 * BT * T * dt.itemsize)
         print(f"probe variant {name} T={T} BT={BT}: ms={ms[name]:.4f} "
               f"plain_ms={plain_ms[name]:.2f} bound_ms={bound_ms:.4f} "
-              f"({by}) share of bound {bound_ms / ms[name]:.4f}",
+              f"({by}) share of bound {bound_ms / ms[name]:.4f} "
+              f"speedup vs int32 {ms['int32'] / ms[name]:.4f}",
               flush=True)
     checks.record("wf_dtype_probe", f"int32 T={T} BT={BT}", worst,
                   ms["int32"], plain_ms["int32"], ops, 2 * BT * T * 4,
@@ -2202,11 +2235,13 @@ def phase_corpus(tmp, dev):
 
 def check_dtype_micro(checks):
     """dtype_micro's kernel against its plain version on the card, exactly
-    (the float variants bit for bit), at the tool's default shape for every
-    variant, both timed; a variant's bound counts OPS_PER_STEP ops an
-    element a step (SWAR_OPS_PER_STEP for SWAR) at its type's rate
-    (DTYPE_RATES, else the int32 rate) and the three inputs read and two
-    outputs written once.  The summary keeps the int32 case."""
+    (the float variants bit for bit), at the tool's default shape and at
+    DTYPE_RAGGED for every variant, both timed; a variant's bound counts
+    OPS_PER_STEP ops a 32-bit word a step (SWAR_OPS_PER_STEP an element
+    for SWAR) at its pipe's rate (DTYPE_PER_CLK_PER_SM, else the int32
+    rate) and the three inputs read and two outputs written once; each
+    narrow variant's speedup over int32 at the tool's shape.  The summary
+    keeps the int32 case."""
     from tidehunter_tpu_torch.evals import dtype_micro as DM
 
     def bits(ts):
@@ -2214,16 +2249,27 @@ def check_dtype_micro(checks):
                        else torch.int32) if t.is_floating_point() else t
                 for t in ts]
 
-    B, L = DM.SHAPE
-    for name, arrays in DM.inputs(B, L).items():
-        x, y, a = DM.tensors(name, arrays, "cuda")
-        ops = SWAR_OPS_PER_STEP if name == "swar" else DM.OPS_PER_STEP
-        checks.run("dtype_micro", f"{name} ({B},{L}) chain {DM.CHAIN}",
-                   lambda: DM.step(name, x, y, a),
-                   lambda: DM.step_plain(name, x, y, a),
-                   lambda: (ops * DM.CHAIN * B * L,
-                            5 * B * L * x.element_size()),
-                   select=bits, rate=DTYPE_RATES.get(name))
+    ms = {}
+    for B, L in (DM.SHAPE, DTYPE_RAGGED):
+        for name, arrays in DM.inputs(B, L).items():
+            x, y, a = DM.tensors(name, arrays, "cuda")
+            ops = SWAR_OPS_PER_STEP if name == "swar" else DM.OPS_PER_STEP
+            words = B * L / LANES_PER_WORD[name]
+            label = f"{name} ({B},{L}) chain {DM.CHAIN}"
+            checks.run("dtype_micro", label,
+                       lambda: DM.step(name, x, y, a),
+                       lambda: DM.step_plain(name, x, y, a),
+                       lambda: (ops * DM.CHAIN * words,
+                                5 * B * L * x.element_size()),
+                       select=bits, rate=checks.card.rate(
+                           DTYPE_PER_CLK_PER_SM.get(name,
+                                                    INT32_PER_CLK_PER_SM)))
+            if (B, L) == DM.SHAPE and checks.wants("dtype_micro"):
+                ms[name] = checks.last_ms
+    for name in ("int16", "int8", "bfloat16"):
+        if name in ms:
+            print(f"dtype_micro {name} speedup vs int32: "
+                  f"{ms['int32'] / ms[name]:.4f}", flush=True)
 
 
 def phase_evals(tmp, dev, checks):
@@ -2390,7 +2436,10 @@ def main(argv=None) -> int:
     print(f"int32 rate: {INT32_PER_CLK_PER_SM} x {card.sms} SMs x "
           f"{card.clock_mhz:.0f} MHz (clocks.max.sm) = "
           f"{card.int_rate / 1e12:.3f} Tops/s; bytes at "
-          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s", flush=True)
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s; float32 "
+          f"{card.rate(FP32_PER_CLK_PER_SM) / 1e12:.3f} T ops/s, bfloat16 "
+          f"x2 {card.rate(BF16X2_PER_CLK_PER_SM) / 1e12:.3f} T ops/s",
+          flush=True)
     native.get_lib()
     print(f"native host library: built from tidehunter_tpu_torch/native/ "
           f"in {native.build_seconds:.2f} s and loaded "
@@ -2415,6 +2464,10 @@ def main(argv=None) -> int:
             myers_check(checks, MAIN_SHAPES["myers_hw"],
                         *myers_main_launch(dev))
         phase_seed_checks(checks, dev)
+        if checks.wants("wf_dtype_probe"):
+            phase_probe(checks, dev)
+        if checks.wants("dtype_micro"):
+            check_dtype_micro(checks)
         return 0
     t0 = time.perf_counter()
     launches = {"wf_dtype_probe": phase_probe(checks, dev)}

@@ -7,9 +7,10 @@
 // Shared memory is filled with 0xA5 bytes, not zeros, as the card gives
 // no initial value.  cp.async copies (cuda_pipeline.h) are synchronous.
 // A shuffle moves a value of up to 8 bytes whole (CUDA's 32- and 64-bit
-// overloads).  Intrinsics compute their exact integer definitions; a
-// ballot or a reduction is a barrier of the warp like a shuffle, an atomic
-// a std::atomic_ref operation.  cudaLaunchKernelEx
+// overloads).  Intrinsics compute their exact integer definitions (the
+// packed-lane SIMD and DPX ones and packed_lanes.cuh's PRMT field by
+// field, wrapped to the field); a ballot or a reduction is a barrier of
+// the warp like a shuffle, an atomic a std::atomic_ref operation.  cudaLaunchKernelEx
 // runs the CTAs of a thread-block cluster at once: cooperative_groups'
 // this_cluster().sync() is a barrier of all their threads and
 // map_shared_rank() points into another CTA's shared memory, which is
@@ -229,6 +230,16 @@ inline int atomicAdd(int* p, int v) {
   return std::atomic_ref<int>(*p).fetch_add(v);
 }
 
+inline float __uint_as_float(unsigned u) {
+  float f;
+  std::memcpy(&f, &u, 4);
+  return f;
+}
+inline unsigned __float_as_uint(float f) {
+  unsigned u;
+  std::memcpy(&u, &f, 4);
+  return u;
+}
 inline int __clz(int x) { return x ? __builtin_clz((unsigned)x) : 32; }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline int __ffs(int x) { return __builtin_ffs(x); }
@@ -313,11 +324,68 @@ inline void mbar_wait(uint64_t* bar, unsigned parity) {
 }
 
 template <class T> inline T __ldg(const T* p) { return *p; }
-inline int __viaddmax_s32(int a, int b, int c) { return max(a + b, c); }
+inline int __viaddmax_s32(int a, int b, int c) {
+  return max((int)((unsigned)a + (unsigned)b), c);
+}
 inline int __vimax3_s32(int a, int b, int c) { return max(max(a, b), c); }
+// max(min(a + b, c), 0), the add wrapping to 32 bits
+inline int __viaddmin_s32_relu(int a, int b, int c) {
+  return max(min((int)((unsigned)a + (unsigned)b), c), 0);
+}
 inline unsigned __funnelshift_r(unsigned lo, unsigned hi, unsigned sh) {
   return (unsigned)((((unsigned long long)hi << 32) | lo) >> (sh & 31));
 }
+// the high word of hi:lo shifted left by min(sh, 32)
+inline unsigned __funnelshift_lc(unsigned lo, unsigned hi, unsigned sh) {
+  const unsigned long long v = ((unsigned long long)hi << 32) | lo;
+  return sh >= 32 ? lo : (unsigned)((v << sh) >> 32);
+}
+
+// Packed-lane intrinsics: 32 / BITS signed fields of a word, each op on
+// each field by its plain integer definition, the result wrapped to the
+// field (compares give all ones where true)
+template <int BITS, class F>
+inline unsigned shim_fields(unsigned a, unsigned b, unsigned c, F f) {
+  constexpr unsigned m = (1u << BITS) - 1;
+  auto field = [](unsigned w, int i) {
+    const int v = (int)((w >> (i * BITS)) & m);
+    return v >= (1 << (BITS - 1)) ? v - (1 << BITS) : v;
+  };
+  unsigned r = 0;
+  for (int i = 0; i < 32 / BITS; ++i)
+    r |= ((unsigned)f(field(a, i), field(b, i), field(c, i)) & m)
+         << (i * BITS);
+  return r;
+}
+#define SHIM_PACKED2(name, BITS, expr)                                \
+  inline unsigned name(unsigned a, unsigned b) {                      \
+    return shim_fields<BITS>(a, b, 0u, [](int x, int y, int) { return (expr); }); \
+  }
+#define SHIM_PACKED3(name, BITS, expr)                                \
+  inline unsigned name(unsigned a, unsigned b, unsigned c) {          \
+    return shim_fields<BITS>(a, b, c, [](int x, int y, int z) { return (expr); }); \
+  }
+SHIM_PACKED2(__vadd2, 16, x + y)
+SHIM_PACKED2(__vsub2, 16, x - y)
+SHIM_PACKED2(__vmaxs2, 16, max(x, y))
+SHIM_PACKED2(__vmins2, 16, min(x, y))
+SHIM_PACKED3(__vimax3_s16x2, 16, max(max(x, y), z))
+SHIM_PACKED3(__viaddmax_s16x2_relu, 16, max(max((int)(int16_t)(x + y), z), 0))
+SHIM_PACKED2(__vminu2, 16, (int)min((unsigned)x & 0xFFFFu, (unsigned)y & 0xFFFFu))
+SHIM_PACKED3(__viaddmax_s16x2, 16, max((int)(int16_t)(x + y), z))
+SHIM_PACKED2(__vadd4, 8, x + y)
+SHIM_PACKED2(__vsub4, 8, x - y)
+SHIM_PACKED2(__vmaxs4, 8, max(x, y))
+SHIM_PACKED2(__vmins4, 8, min(x, y))
+SHIM_PACKED2(__vcmpgts4, 8, x > y ? -1 : 0)
+SHIM_PACKED2(__vcmpne4, 8, x != y ? -1 : 0)
+
+// packed_lanes.cuh: 0xFFFF in each 16-bit field whose sign bit is set;
+// the thread's index
+inline uint32_t field_signs16(uint32_t x) {
+  return ((x & 0x8000u) ? 0xFFFFu : 0u) | ((x & 0x80000000u) ? 0xFFFF0000u : 0u);
+}
+inline int thread_x() { return (int)threadIdx.x; }
 inline unsigned __byte_perm(unsigned x, unsigned y, unsigned s) {
   const unsigned long long v = ((unsigned long long)y << 32) | x;
   unsigned r = 0;

@@ -40,6 +40,7 @@ from test_offload import _random_reads
 from tidehunter_tpu.ops.seeding import collect_tandem_repeat_hits
 from tidehunter_tpu_torch import _kernels as K
 from tidehunter_tpu_torch.evals import dtype_micro as DM
+from tidehunter_tpu_torch.evals import wf_dtype_probe as PR
 from tidehunter_tpu_torch.ops import chaining_device as CD
 from tidehunter_tpu_torch.ops import msa_device as TMD
 from tidehunter_tpu_torch.ops import seeding_device as SD
@@ -49,7 +50,7 @@ from tidehunter_tpu_torch.ops import wavefront as TW
 torch.set_num_threads(1)
 
 SOURCES = ("wavefront.cu", "profile_dp.cu", "profile_bt.cu", "myers_hw.cu",
-           "seed_hits.cu", "chain_dp.cu", "dtype_micro.cu")
+           "seed_hits.cu", "chain_dp.cu", "dtype_micro.cu", "wf_dtype_probe.cu")
 
 
 # cuda_bf16.h's bfloat16 for the shim: each op in float, rounded to
@@ -83,6 +84,22 @@ inline __nv_bfloat16 __hmax(__nv_bfloat16 a, __nv_bfloat16 b) {
 inline bool __hgt(__nv_bfloat16 a, __nv_bfloat16 b) {
   return shim_bf2f(a) > shim_bf2f(b);
 }
+// two bfloat16 in a word, the low one .x; each op as the scalar one
+struct __nv_bfloat162 { __nv_bfloat16 x, y; };
+inline __nv_bfloat162 __hadd2(__nv_bfloat162 a, __nv_bfloat162 b) {
+  return {__hadd(a.x, b.x), __hadd(a.y, b.y)};
+}
+inline __nv_bfloat162 __hsub2(__nv_bfloat162 a, __nv_bfloat162 b) {
+  return {__hsub(a.x, b.x), __hsub(a.y, b.y)};
+}
+inline __nv_bfloat162 __hmax2(__nv_bfloat162 a, __nv_bfloat162 b) {
+  return {__hmax(a.x, b.x), __hmax(a.y, b.y)};
+}
+// 0xFFFF in each half where a > b
+inline unsigned __hgt2_mask(__nv_bfloat162 a, __nv_bfloat162 b) {
+  return (__hgt(a.x, b.x) ? 0xFFFFu : 0u) |
+         (__hgt(a.y, b.y) ? 0xFFFF0000u : 0u);
+}
 """
 
 
@@ -94,6 +111,7 @@ def _translate(src: str) -> str:
     src = src.replace("#include <cuda_bf16.h>", BF16_SHIM)
     src = src.replace("#include <cooperative_groups.h>", "")
     src = src.replace('#include "bulk_copy.cuh"', "")
+    src = src.replace('#include "packed_lanes.cuh"', "")
     src = re.sub(r"extern __shared__ (\w+) (\w+)\[\];",
                  r"\1* \2 = (\1*)shim_smem;", src)
     return re.sub(r"([\w:]+(?:<[\w, ]+>)?)\s*<<<(.*?)>>>\s*\(",
@@ -127,7 +145,7 @@ def lib(tmp_path_factory):
     fns = {}
     for k in (K.WF_GLOBAL, K.WF_EXT, K.PROFILE_DP, K.PROFILE_DP_FIRST,
               K.PROFILE_DP_ON, K.PROFILE_BT, K.MYERS_HW, K.SEED_HITS,
-              K.CHAIN_DP, K.DTYPE_MICRO):
+              K.CHAIN_DP, K.DTYPE_MICRO, K.WF_DTYPE_PROBE):
         fn = getattr(dll, k.name)
         fn.argtypes = [*k.argtypes, ctypes.c_void_p]
         fn.restype = ctypes.c_int
@@ -939,3 +957,208 @@ def test_dtype_micro_source_matches_plain(lib, name):
     assert rc == 0
     wx, wy = DM.step_plain(name, x, y, a)
     assert torch.equal(xo, wx) and torch.equal(yo, wy)
+
+
+@pytest.mark.parametrize("name", list(DM.VARIANTS))
+def test_dtype_micro_source_ragged_n(lib, name):
+    """Every variant at (7, 1001): 7007 elements, a byte count no
+    multiple of 16, so the last thread reads and writes its bytes one by
+    one; CHAIN steps: exact."""
+    x, y, a = (t.contiguous() for t in DM.tensors(
+        name, DM.inputs(7, 1001)[name], "cpu"))
+    xo, yo = torch.empty_like(x), torch.empty_like(y)
+    rc = lib["dtype_micro"](x.data_ptr(), y.data_ptr(), a.data_ptr(),
+                            xo.data_ptr(), yo.data_ptr(), x.numel(),
+                            DM.CHAIN, list(DM.VARIANTS).index(name), None)
+    assert rc == 0
+    wx, wy = DM.step_plain(name, x, y, a)
+    assert torch.equal(xo, wx) and torch.equal(yo, wy)
+
+
+def _probe_run(lib, tb, name):
+    out = torch.empty_like(tb)
+    BT, T = tb.shape
+    rc = lib["wf_dtype_probe"](tb.data_ptr(), out.data_ptr(), BT, T,
+                               PR.n_rows(T), list(PR.VARIANTS).index(name),
+                               None)
+    assert rc == 0
+    return out
+
+
+@pytest.mark.parametrize("T,BT", [(200, 7), (201, 3), (203, 5), (7, 2)])
+@pytest.mark.parametrize("name", list(PR.VARIANTS))
+def test_wf_dtype_probe_source_matches_plain(lib, name, T, BT):
+    """The probe's source, every variant, two calls of a chain (the second
+    fed the first's output & 3): T=200 (two warps, whole words), T=201
+    and 203 (odd, and not a multiple of 4: lane T-1 in the middle of its
+    thread's lanes, padding past it), T=7 (one warp, lane T-1 in the first
+    thread past its first word): exact."""
+    dt, iota_dt = PR.VARIANTS[name]
+    x = PR.tile(name, T, BT, "cpu")
+    for _ in range(2):
+        want = PR.probe_plain(x, dt, iota_dt)
+        assert torch.equal(_probe_run(lib, x, name), want)
+        x = want & 3
+
+
+# The shim's packed-lane intrinsics (cuda_shim.h, BF16_SHIM) over arrays
+# of words, each against NumPy's per-field arithmetic below, so that a
+# model cannot agree with a wrong kernel by being wrong the same way.
+SHIM_PACKED_SRC = BF16_SHIM + r'''
+#define F2(name) extern "C" void t_##name(const unsigned* a, \
+    const unsigned* b, const unsigned* c, unsigned* o, int n) { \
+  for (int i = 0; i < n; ++i) o[i] = name(a[i], b[i]); }
+#define F3(name) extern "C" void t_##name(const unsigned* a, \
+    const unsigned* b, const unsigned* c, unsigned* o, int n) { \
+  for (int i = 0; i < n; ++i) o[i] = name(a[i], b[i], c[i]); }
+F2(__vadd2) F2(__vsub2) F2(__vmaxs2) F2(__vmins2) F2(__vminu2)
+F3(__vimax3_s16x2) F3(__viaddmax_s16x2) F3(__viaddmax_s16x2_relu)
+F2(__vadd4) F2(__vsub4) F2(__vmaxs4) F2(__vmins4) F2(__vcmpgts4)
+F2(__vcmpne4) F3(__byte_perm) F3(__funnelshift_lc)
+extern "C" void t_field_signs16(const unsigned* a, const unsigned* b,
+    const unsigned* c, unsigned* o, int n) {
+  for (int i = 0; i < n; ++i) o[i] = field_signs16(a[i]);
+}
+extern "C" void t___viaddmax_s32(const unsigned* a, const unsigned* b,
+    const unsigned* c, unsigned* o, int n) {
+  for (int i = 0; i < n; ++i)
+    o[i] = (unsigned)__viaddmax_s32((int)a[i], (int)b[i], (int)c[i]);
+}
+extern "C" void t___viaddmin_s32_relu(const unsigned* a, const unsigned* b,
+    const unsigned* c, unsigned* o, int n) {
+  for (int i = 0; i < n; ++i)
+    o[i] = (unsigned)__viaddmin_s32_relu((int)a[i], (int)b[i], (int)c[i]);
+}
+static __nv_bfloat162 shim_h2(unsigned u) {
+  return {{(uint16_t)u}, {(uint16_t)(u >> 16)}};
+}
+static unsigned shim_u(__nv_bfloat162 h) {
+  return h.x.bits | ((unsigned)h.y.bits << 16);
+}
+#define H2(name) extern "C" void t_##name(const unsigned* a, \
+    const unsigned* b, const unsigned* c, unsigned* o, int n) { \
+  for (int i = 0; i < n; ++i) o[i] = shim_u(name(shim_h2(a[i]), \
+                                                 shim_h2(b[i]))); }
+H2(__hadd2) H2(__hsub2) H2(__hmax2)
+extern "C" void t___hgt2_mask(const unsigned* a, const unsigned* b,
+    const unsigned* c, unsigned* o, int n) {
+  for (int i = 0; i < n; ++i) o[i] = __hgt2_mask(shim_h2(a[i]), shim_h2(b[i]));
+}
+'''
+
+
+def _fields(w, bits):
+    f = np.stack([(w.astype(np.int64) >> (bits * i)) & ((1 << bits) - 1)
+                  for i in range(32 // bits)], -1)
+    return np.where(f >= 1 << (bits - 1), f - (1 << bits), f)
+
+
+def _pack(f, bits):
+    out = np.zeros(f.shape[:-1], np.int64)
+    for i in range(f.shape[-1]):
+        out |= (f[..., i] & ((1 << bits) - 1)) << (bits * i)
+    return out.astype(np.uint32)
+
+
+def _wrap(v, bits):
+    return ((v + (1 << (bits - 1))) % (1 << bits)) - (1 << (bits - 1))
+
+
+def _packed_ref(name, A, B, C):
+    bits = 8 if name.endswith("4") else 16
+    a, b, c = (_fields(w, bits) for w in (A, B, C))
+    unsigned = (a & ((1 << bits) - 1), b & ((1 << bits) - 1))
+    field = {
+        "__vadd2": lambda: _wrap(a + b, 16), "__vsub2": lambda: _wrap(a - b, 16),
+        "__vmaxs2": lambda: np.maximum(a, b), "__vmins2": lambda: np.minimum(a, b),
+        "__vminu2": lambda: np.minimum(*unsigned),
+        "__vimax3_s16x2": lambda: np.maximum(np.maximum(a, b), c),
+        "__viaddmax_s16x2": lambda: np.maximum(_wrap(a + b, 16), c),
+        "__viaddmax_s16x2_relu":
+            lambda: np.maximum(np.maximum(_wrap(a + b, 16), c), 0),
+        "field_signs16": lambda: np.where(a < 0, -1, 0),
+        "__vadd4": lambda: _wrap(a + b, 8), "__vsub4": lambda: _wrap(a - b, 8),
+        "__vmaxs4": lambda: np.maximum(a, b), "__vmins4": lambda: np.minimum(a, b),
+        "__vcmpgts4": lambda: np.where(a > b, -1, 0),
+        "__vcmpne4": lambda: np.where(a != b, -1, 0)}
+    if name in field:
+        return _pack(field[name](), bits)
+    hi_lo = (B.astype(np.uint64) << 32) | A.astype(np.uint64)
+    sh = C.astype(np.uint64)
+    if name == "__funnelshift_lc":
+        return np.where(sh >= 32, A, (hi_lo << np.minimum(sh, 31)) >> 32
+                        ).astype(np.uint32)
+    if name == "__byte_perm":
+        sel = [(C.astype(np.uint64) >> (4 * i)) & 7 for i in range(4)]
+        return sum(((hi_lo >> (8 * s)) & 0xFF) << (8 * i)
+                   for i, s in enumerate(sel)).astype(np.uint32)
+    s = _wrap(A.view(np.int32).astype(np.int64) + B.view(np.int32), 32)
+    if name == "__viaddmax_s32":
+        return np.maximum(s, C.view(np.int32)).astype(np.uint32)
+    return np.maximum(np.minimum(s, C.view(np.int32)), 0).astype(np.uint32)
+
+
+def _bf16_ref(name, A, B):
+    a, b = (torch.from_numpy(w.view(np.int16).copy()).view(torch.bfloat16)
+            for w in (A, B))
+    if name == "__hgt2_mask":
+        return np.where((a > b).numpy().reshape(-1, 2), 0xFFFF, 0).astype(
+            np.uint32) @ np.array([1, 1 << 16], np.uint32)
+    op = {"__hadd2": torch.add, "__hsub2": torch.sub,
+          "__hmax2": torch.maximum}[name]
+    return op(a, b).view(torch.int16).numpy().view(np.uint32)
+
+
+SHIM_PACKED = ["__vadd2", "__vsub2", "__vmaxs2", "__vmins2", "__vminu2",
+               "__vimax3_s16x2", "__viaddmax_s16x2", "__viaddmax_s16x2_relu",
+               "field_signs16", "__vadd4", "__vsub4", "__vmaxs4", "__vmins4",
+               "__vcmpgts4", "__vcmpne4", "__byte_perm", "__funnelshift_lc",
+               "__viaddmax_s32", "__viaddmin_s32_relu", "__hadd2", "__hsub2",
+               "__hmax2", "__hgt2_mask"]
+
+
+@pytest.fixture(scope="module")
+def packed_lib(tmp_path_factory):
+    return ctypes.CDLL(str(_shim_lib(tmp_path_factory.mktemp("packed"),
+                                     "packed", SHIM_PACKED_SRC)))
+
+
+@pytest.mark.parametrize("name", SHIM_PACKED)
+def test_shim_packed_intrinsics_match_numpy(packed_lib, name):
+    """Random words, a quarter with every field at a type edge (0, +-1,
+    2, 4, 7, the largest and least values), small signed fields, for the
+    funnel shift every amount 0..40, for __byte_perm every selector (its
+    nibbles' top bit ignored, as CUDA documents); bfloat16 pairs of small
+    finite values: the model equals the per-field definition on all of
+    them."""
+    rng = np.random.default_rng(SHIM_PACKED.index(name))
+    n = 4096
+    A, B, C = rng.integers(0, 1 << 32, (3, n), dtype=np.uint64).astype(
+        np.uint32)
+    bits = 8 if name.endswith("4") else 16
+    edge = np.array([0, 1, 2, 4, 7, (1 << (bits - 1)) - 1, 1 << (bits - 1),
+                     (1 << (bits - 1)) + 1, (1 << bits) - 1,
+                     (1 << bits) - 2], np.int64)
+    e = edge[rng.integers(0, len(edge), (3, n // 4, 32 // bits))]
+    A[:n // 4], B[:n // 4], C[:n // 4] = (_pack(e[i], bits) for i in range(3))
+    s = rng.integers(-12, 12, (3, n // 4, 32 // bits))
+    A[n // 4:n // 2], B[n // 4:n // 2], C[n // 4:n // 2] = (
+        _pack(s[i], bits) for i in range(3))
+    if name == "__funnelshift_lc":
+        C = rng.integers(0, 41, n).astype(np.uint32)
+    if name == "__byte_perm":
+        C = rng.integers(0, 1 << 16, n).astype(np.uint32)
+    if name == "__viaddmin_s32_relu":
+        C = rng.integers(-40, 40, n).astype(np.int32).view(np.uint32)
+    if name.startswith("__h"):
+        A, B = (torch.tensor(rng.integers(-64, 64, (n, 2)) / 8.0,
+                             dtype=torch.bfloat16).view(torch.int32)
+                .reshape(-1).numpy().view(np.uint32) for _ in range(2))
+        want = _bf16_ref(name, A, B)
+    else:
+        want = _packed_ref(name, A, B, C)
+    fn = getattr(packed_lib, f"t_{name}")
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int]
+    out = np.zeros(n, np.uint32)
+    fn(A.ctypes.data, B.ctypes.data, C.ctypes.data, out.ctypes.data, n)
+    np.testing.assert_array_equal(out, want)

@@ -50,3 +50,15 @@ def test_loops_and_their_counts(text):
     assert row["insns"] == 10
     assert (row["BAR"], row["SHFL"], row["LDS"], row["STS"], row["STG"],
             row["LDG"], row["BRA"], row["SYNCS"]) == (1, 2, 1, 1, 1, 0, 2, 1)
+
+
+def test_loop_opcode_counts():
+    """Each loop's opcodes with their counts, modifiers kept: the row
+    loop of LABELS holds one SHFL.DOWN, one SHFL.UP, one barrier and the
+    two branches, ten instructions in all."""
+    loops = {(r["from"], r["to"]): r
+             for r in SL.loops(SL.functions(LABELS)["_Z4bandPii"])}
+    row = loops[("0x0010", "0x00a0")]["ops"]
+    assert row["SHFL.DOWN"] == 1 and row["SHFL.UP"] == 1
+    assert row["BAR.SYNC.DEFER_BLOCKING"] == 1 and row["BRA"] == 2
+    assert sum(row.values()) == 10

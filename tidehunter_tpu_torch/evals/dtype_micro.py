@@ -14,18 +14,18 @@ inputs are the JAX tool's draws (``default_rng(0)``, in its order).
 Under XLA the JAX step is one fused loop.  Eager torch ops would time
 3 x 64 launches and the HBM traffic between them, not the ALU rate the
 question is about, so on the card ``step`` is one launch of the
-hand-written kernel ``csrc/dtype_micro.cu`` (templated on the element
-type, plus the SWAR variant; a thread an element, its 64 steps in
-registers); on a CPU tensor it runs ``step_plain``, the same steps as
-torch ops.  A time is the mean of 50 launches after a warm one, on CUDA
-events behind a device sleep ([events]; the host clock on
-``--device cpu``).
-
-One fact of this card bears on the answer: packed 8- and 16-bit fields have
-instructions of their own (``__vadd4`` / ``__vmaxs4``, and Hopper's DPX
-``__viaddmax_s16x2`` family), and they are the lever the question is
-about.  This tool measures the JAX tool's SWAR emulation only; a variant
-on those instructions is work for a later kernel.
+hand-written kernel ``csrc/dtype_micro.cu``; on a CPU tensor it runs
+``step_plain``, the same steps as torch ops.  The kernel gives a thread
+16 bytes of each array, four 32-bit words stepped 64 times in registers:
+an int32 or float32 element a word, or the card's packed lanes, two int16
+elements a word (Hopper's DPX ``__viaddmax_s16x2`` and the SIMD
+``__vcmpgts2``, ``__vsub2``), four int8 (``__vadd4``, ``__vmaxs4``,
+``__vcmpgts4``, ``__vsub4``) or two bfloat16 (``__hadd2``, ``__hmax2``,
+``__hgt2_mask``, ``__hsub2``), each op wrapping (or rounding) per element
+as the plain version does.  SWAR keeps a thread an element: it is the JAX
+tool's emulation of those lanes.  A time is the mean of 50 launches after
+a warm one, on CUDA events behind a device sleep ([events]; the host clock
+on ``--device cpu``).
 
     python -m tidehunter_tpu_torch.evals.dtype_micro [--device cuda|cpu]
 """
@@ -50,9 +50,10 @@ ITERS = 50          # launches a timing
 VARIANTS = {"int32": torch.int32, "int16": torch.int16, "int8": torch.int8,
             "float32": torch.float32, "bfloat16": torch.bfloat16,
             "swar": torch.int32}
-# the ops an element a step of csrc/dtype_micro.cu's native loop (add,
-# max, compare, sub, select): the bound's count, against 3 inputs read and
-# 2 outputs written once
+# the ops a 32-bit word a step of csrc/dtype_micro.cu's loop (add, max,
+# compare, sub, select; a packed word holds 2 int16, 4 int8 or 2 bfloat16
+# elements): the bound's count, against 3 inputs read and 2 outputs
+# written once
 OPS_PER_STEP = 5
 # the JAX tool's rate counts: ops an element a step, fields an element
 RATE_OPS, SWAR_FIELDS = 3, 4
@@ -137,7 +138,10 @@ def step(name: str, x, y, a, chain: int = CHAIN):
         return step_plain(name, x, y, a, chain)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
+    # the kernel reads and writes 16 bytes at a time from 16-byte aligned
+    # arrays
     x, y, a = (t.contiguous() for t in (x, y, a))
+    x, y, a = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (x, y, a))
     xo, yo = torch.empty_like(x), torch.empty_like(y)
     K.DTYPE_MICRO(x.device, x.data_ptr(), y.data_ptr(), a.data_ptr(),
                   xo.data_ptr(), yo.data_ptr(), x.numel(), chain,

@@ -1,6 +1,7 @@
 """The loops of each compiled kernel, read from its SASS.
 
     python -m tidehunter_tpu_torch.evals.sass_loops [NAME ...] [--out FILE]
+        [--ops]
 
 Builds the port's kernel library (``_kernels.build``), disassembles it
 with ``cuobjdump -sass`` and prints, for every kernel whose mangled name
@@ -9,8 +10,10 @@ branch and the instructions from its target to it, with the count of
 barriers, shuffles, shared- and global-memory loads and stores, and
 branches inside.  A kernel's row loop is the loop that holds its barrier
 or its direction-byte store; its count is the issue a warp spends a row
-(each instruction once, whatever its latency).  ``--out`` also writes the
-whole disassembly.  Needs the CUDA toolkit (``cuobjdump`` beside
+(each instruction once, whatever its latency).  ``--ops`` adds each
+loop's opcodes with their counts (``VIADD.16x2=16``), from which a loop's
+work in words or steps is read.  ``--out`` also writes the whole
+disassembly.  Needs the CUDA toolkit (``cuobjdump`` beside
 ``nvcc``); on a host without one it exits 2.
 """
 
@@ -21,6 +24,7 @@ import re
 import shutil
 import subprocess
 import sys
+from collections import Counter
 from pathlib import Path
 from typing import Dict, List, Tuple
 
@@ -76,7 +80,8 @@ def functions(sass: str) -> Dict[str, List[Tuple[int, str, str]]]:
 
 
 def loops(insns) -> List[dict]:
-    """Every backward branch: its span and the counts of KINDS inside."""
+    """Every backward branch: its span, the counts of KINDS inside and
+    each opcode's count (``ops``)."""
     found = []
     for i, (addr, op, tgt) in enumerate(insns):
         if not op.startswith("BRA") or not tgt or int(tgt) >= addr:
@@ -86,6 +91,7 @@ def loops(insns) -> List[dict]:
                "insns": len(body)}
         for kind, prefixes in KINDS.items():
             row[kind] = sum(x[1].startswith(prefixes) for x in body)
+        row["ops"] = dict(Counter(x[1] for x in body).most_common())
         found.append(row)
     return found
 
@@ -94,6 +100,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("names", nargs="*")
     ap.add_argument("--out", help="write the whole disassembly here")
+    ap.add_argument("--ops", action="store_true",
+                    help="print each loop's opcodes and their counts")
     args = ap.parse_args(argv)
     tool = shutil.which("cuobjdump") or str(Path(K._nvcc()).with_name(
         "cuobjdump"))
@@ -110,8 +118,12 @@ def main(argv=None) -> int:
         print(f"{name}: {len(insns)} instructions")
         for row in loops(insns):
             if row["insns"] >= 16:
+                ops = row.pop("ops")
                 print("  loop " + " ".join(f"{k}={v}" for k, v in
                                            row.items()))
+                if args.ops:
+                    print("    ops " + " ".join(f"{k}={v}" for k, v in
+                                                ops.items()))
     return 0
 
 

@@ -10,7 +10,11 @@ lane index, int16 / int16, int16 / int32 and int8 / int32.
 
 ``probe`` launches the hand-written kernel (``csrc/wf_dtype_probe.cu``) on
 a CUDA tensor and runs ``probe_plain``, the same loop in torch ops, on a
-CPU tensor.  ``main`` times the four variants on the card:
+CPU tensor.  The kernel gives a thread one 32-bit word: an int32 lane,
+or, in the int16 and int8 variants, the card's packed lanes (two 16-bit
+or four 8-bit fields a word, stepped by SIMD and DPX instructions); the
+row's words pass through shared memory with one barrier a row.
+``main`` times the four variants on the card:
 
     python -m tidehunter_tpu_torch.evals.wf_dtype_probe [T] [BT]
 
@@ -31,10 +35,11 @@ from .. import _kernels as K
 
 ROWS_PER_STEP = 4   # K of the JAX probe: rows per grid step
 CHAIN = 8
-MAX_T = 1024        # one thread per lane
-# Integer ops per cell of the kernel's loop, counted in
-# csrc/wf_dtype_probe.cu; bytes per cell are the tile read and written
-# once per call.
+MAX_T = 1024        # a word a thread, at most 1024 threads a CTA
+# Integer ops per cell of the JAX kernel's loop, counted in
+# csrc/wf_dtype_probe.cu: per 32-bit word, so a packed int16 word does them
+# for 2 cells and an int8 word for 4; bytes per cell are the tile read and
+# written once per call.
 OPS_PER_CELL = 35
 # name -> (state type, lane-index type), in the JAX probe's order
 VARIANTS = {
