@@ -15,15 +15,18 @@ Phases, each printing its result on its own line:
      on the card, exact integer equality, at the shapes the default path
      gives it, with both times (CUDA events, the kernel's runs queued
      behind a device sleep); wf_ext also at each lanes-a-thread choice;
-     profile_dp off the warp kernel's rungs (full width, the 4096 bucket)
-     also against its first version, and on the 4096 bucket's band rungs
-     against the kernels of the other routes (profile_dp_on), each equal
-     and timed in the same run; one region (B=1) at T=4096 W=256 on the
-     first version, the warp kernel and the band kernel, in us a row;
-     K1 at the periods path's two largest launches ((1536,1536) B=1285,
-     (3072,3072) B=388) and the warp kernel at T=2048 B=8 on W = 128,
-     256 and 512 (the band kernel and the strips beside, profile_dp_on)
-     are held to their plain versions on their first 8 problems;
+     wf_global at every shape beside the kernel of its other route
+     (global_route: the warp kernel, or the CTA kernel wf_global_cta);
+     profile_dp at every shape also against its first version, and on
+     every band rung against the strips (profile_dp_on), each equal and
+     timed in the same run; one region (B=1) at T=4096 W=256 on the
+     first version and the band kernel, in us a row; K1 at the periods
+     path's two largest launches ((1536,1536) B=1285, (3072,3072) B=388)
+     and profile_dp at T=2048 on the periods path's largest launches (B =
+     256, 251 and 256 on W = 128, 256 and 512) are held to their plain
+     versions on their first 8 problems;
+     in a --kernels run naming wf_global, both routes of wf_global at
+     ROUTE_SWEEP's launch sizes, each equal to the other;
      myers_hw (the adapter search) against hw_batch_plain at the adapter
      path's shapes (4096 searches of the 84 and 25 bp adapters in ~1.1 kb
      doubled consensus), the single-copy path's (2048 searches of 32, 64,
@@ -58,7 +61,10 @@ Phases, each printing its result on its own line:
      through the same runner and engine, one warm run then a timed run;
      full-width rounds (K3) and the 4096 bucket's W=256 must have
      launched, the latter on profile_dp's route there (the band kernel),
-     whose launches by route the phase prints; the
+     every profile_dp launch on dp_route's kernel (the band kernel on
+     every band rung) and wf_global_cta at least once (the periods path's
+     two largest K1 launches), the launches by route of both entry points
+     printed; the
      timed run's records of the first 8 reads of each population
      byte-identical with tidehunter_core (run over a pool of host
      processes), and every read's (all 896) matching its committed oracle
@@ -213,18 +219,22 @@ TOL = 0   # every kernel output is an integer, compared exactly
 # B=1 and 8 on the slice's rung; then the largest buckets, which
 # long-period reads reach: wavefront rows past a 512 target and the 4096
 # MSA bucket banded and at full width.
-# wf_global's routes by target bucket T: one column tile of 32 x 4 (T <=
-# 128), 32 x 8 (T <= 256) or 32 x 16 (T <= 512) columns; wider targets in
-# tiles of 512 with the edge column in shared memory (T=1024, LQ=256) or
-# in a global scratch (6144, 8192).  wf_ext's lanes a thread by target
+# wf_global's routes by target bucket T and launch (ops/wavefront.
+# global_route): one column tile of 32 x 4 (T <= 128), 32 x 8 (T <= 256)
+# or 32 x 16 (T <= 512) columns on the warp kernel; wider targets in tiles
+# of 512, on the CTA kernel for few problems ((6144,6144) and (8192,8192)
+# B=8 in clusters, (256,1024) B=512, the periods path's (1536,1536) and
+# (3072,3072)), else the warp kernel with the edge column in shared
+# memory or in a global scratch.  wf_ext's lanes a thread by target
 # bucket and launch size (ops/wavefront.EXT_LANES): 1 at B <= the SM
 # count and 2 above it up to T=1024, 4 at 4096, 16 at 8192.
-# profile_dp's: the warp kernel on the W=128/256/512 rungs of T=640; the
-# strips at full width (a warp a region at T=128 with the short-period
-# path's ~700 regions a launch; 2 columns a lane over one CTA at T=256 and
-# over clusters from T=640); the band kernel on the 4096 bucket's W=128,
-# 256 and 512, at the protocol's B=8, the periods path's B=121 (W=256)
-# and B=125 (W=128), and B=64.
+# profile_dp's: the band kernel on the W=128/256/512 rungs of every bucket
+# (T=640 at the slice's B=512, 8 and 1; the 4096 bucket at the protocol's
+# B=8, the periods path's B=121 (W=256) and B=125 (W=128), and B=64; the
+# 2048 bucket at B=8 and the periods path's largest); the strips at full
+# width (a warp a region at T=128 with the short-period path's ~700
+# regions a launch; 2 columns a lane over one CTA at T=256 and over
+# clusters from T=640).
 # profile_bt has one kernel for every rung: whole band rows or 128-lane
 # windows a tile.
 WF_CASES = [("iden_only", 2048, 512, 512), ("iden_only", 4096, 512, 512),
@@ -237,12 +247,18 @@ WF_CASES = [("iden_only", 2048, 512, 512), ("iden_only", 4096, 512, 512),
             ("iden_only", 8, 6144, 6144), ("tleft", 8, 8192, 8192),
             ("ext", 8, 512, 4096), ("ext", 8, 4096, 8192),
             ("tleft", 507, 128, 128), ("tleft", 1, 256, 256),
-            ("iden_only", 1285, 1536, 1536), ("iden_only", 388, 3072, 3072)]
+            ("iden_only", 1285, 1536, 1536), ("iden_only", 388, 3072, 3072),
+            ("iden_only", 150, 1024, 1024), ("iden_only", 72, 2048, 2048),
+            ("iden_only", 69, 3072, 3072)]
 # the periods path's two largest K1 launches (phase 5: 17.263 of K1's 21.5
-# ms on its trace), held to the plain version on their first PLAIN_FIRST
-# problems only (the plain K1 takes ~13.5 s at (6144,6144) B=8)
+# ms on its trace) and the accuracy protocol's largest past one tile
+# (phase 10 (c): B up to 150, 72 and 69), held to the plain version on
+# their first PLAIN_FIRST problems only (the plain K1 takes ~13.5 s at
+# (6144,6144) B=8)
 PLAIN_FIRST = 8
-FIRST_ONLY = {("iden_only", 1285, 1536, 1536), ("iden_only", 388, 3072, 3072)}
+FIRST_ONLY = {("iden_only", 1285, 1536, 1536), ("iden_only", 388, 3072, 3072),
+              ("iden_only", 150, 1024, 1024), ("iden_only", 72, 2048, 2048),
+              ("iden_only", 69, 3072, 3072)}
 # the device walks' K1 launches on the slice under a one-card mesh
 # (phase 9): with TH_HOST_ALN_CAP=0 every walk step, the largest launch
 # (128,128) B=507 (the first round of the first chunk); at the default cap
@@ -261,16 +277,36 @@ MSA_CASES = [(640, 128, 512, 450), (640, 128, 8, 450), (640, 128, 1, 450),
              (4096, 256, 8, 3000), (4096, 256, 121, 3000),
              (4096, 128, 8, 3000), (4096, 128, 125, 3000),
              (2048, 128, 8, 1500), (2048, 256, 8, 1500),
-             (2048, 512, 8, 1500)]
+             (2048, 512, 8, 1500), (2048, 128, 256, 1500),
+             (2048, 256, 251, 1500), (2048, 512, 256, 1500)]
 # the band kernel's launch sizes beyond B=64 (the protocol's B=8, the
-# periods path's largest) and the warp kernel's T=2048 rungs at the
-# protocol's B=8 (174 launches; the band kernel and the strips timed
-# beside): profile_bt reads their planes as it reads the shapes checked
+# periods path's largest) and the T=2048 rungs at the protocol's B=8 (174
+# launches) and the periods path's largest B (256 at W=128, 251 at
+# W=256; W=512 at B=256, 16 warps a region of the band kernel, two waves
+# of CTAs): profile_bt reads their planes as it reads the shapes checked
 # above, so only profile_dp is checked there
-DP_ONLY = set(MSA_CASES[-7:])
+DP_ONLY = set(MSA_CASES[-10:])
+# checked against the plain version on their first PLAIN_FIRST regions
+DP_FIRST = set(MSA_CASES[-3:])
 # the entry point whose route each kernel of the summary is (--kernels
 # profile_dp checks them all)
-ENTRY_POINT = {"profile_dp_band": "profile_dp"}
+ENTRY_POINT = {"profile_dp_band": "profile_dp", "wf_global_cta": "wf_global"}
+# wf_global's kernel of each route (ops/wavefront.GLOBAL_ROUTES)
+GLOBAL_KERNEL = {"warp": "wf_global", "cta": "wf_global_cta"}
+# wf_global's two routes timed side by side (each equal to the other) in
+# a --kernels run that names wf_global: launch sizes about global_route's
+# threshold at 2, 3, 4 and 6 tiles, and the accuracy protocol's launches
+# past one tile (phase 10 (c): (1024,1024) B up to 150, (1280,1024) B up
+# to 2, (2048,2048) B up to 72, (3072,3072) B up to 69): (kind, LQ, LT,
+# sizes)
+ROUTE_SWEEP = [("tleft", 256, 1024, (64, 256, 384, 512, 2048)),
+               ("iden_only", 1024, 1024, (2, 8, 32, 72, 150, 264, 400,
+                                          528)),
+               ("iden_only", 1280, 1024, (2, 8)),
+               ("iden_only", 1536, 1536, (132, 528, 700, 850, 1000, 1100,
+                                          1200, 1285, 1800, 2570)),
+               ("iden_only", 2048, 2048, (72, 132, 528, 1000, 1500, 2000)),
+               ("iden_only", 3072, 3072, (8, 69, 132, 388, 1000, 2000))]
 # the shape the band kernel was written for: phases 5 and 10 (c) fail
 # unless their runs reach it on profile_dp's route there
 BAND_SHAPE = (4096, 256)
@@ -282,6 +318,7 @@ ROW_COST = (4096, 256, 3000)
 # of more than one problem an SM, which hold most of its slice time; for
 # myers_hw the largest launch of its main path, phase 6's first run)
 MAIN_SHAPES = {"wf_global": "iden_only (512,512) B=4096",
+               "wf_global_cta": "iden_only (3072,3072) B=388",
                "wf_ext": "ext (512,640) B=1024",
                "profile_dp": "T=640 W=128 B=512",
                "profile_dp_full": "T=128 W=full B=704",
@@ -301,8 +338,8 @@ PROBE_CASES = [(512, 128), (200, 7), (201, 3), (203, 5)]
 FLOOR_TURNS = 3      # phase 4's runs of the host floor and the slice each
 SLICE_KERNELS = ("wf_global", "wf_ext", "profile_dp", "profile_bt")
 # kernel names in a trace -> the kernel (profile_dp has four)
-TRACE_NAMES = {"wf_global_kernel": "wf_global", "wf_ext_kernel": "wf_ext",
-               "profile_dp_warp": "profile_dp_warp",
+TRACE_NAMES = {"wf_global_kernel": "wf_global",
+               "wf_global_cta": "wf_global_cta", "wf_ext_kernel": "wf_ext",
                "profile_dp_strip": "profile_dp_strip",
                "profile_dp_band": "profile_dp_band",
                "profile_dp_kernel": "profile_dp_first",
@@ -314,10 +351,10 @@ LONG_READS, LONG_GAP = 16, 2300  # phase 2's long row: 16 reads of ~12 kb
 # phase 6: the kernels each option run (evals/bench.OPTION_RUNS) must
 # launch, those it must not, and the profile_dp routes it must take
 CONSENSUS_KERNELS = ("wf_global", "wf_ext", "profile_dp", "profile_bt")
-ADAPTER_NEED = (CONSENSUS_KERNELS + ("myers_hw",), (), ("warp",))
+ADAPTER_NEED = (CONSENSUS_KERNELS + ("myers_hw",), (), ("band",))
 OPTION_NEED = {"ada_f2": ADAPTER_NEED, "ada_F": ADAPTER_NEED,
                "ada_sF": ADAPTER_NEED, "ada_a": ADAPTER_NEED,
-               "polish1": (CONSENSUS_KERNELS, ("myers_hw",), ("warp",)),
+               "polish1": (CONSENSUS_KERNELS, ("myers_hw",), ("band",)),
                # the MSA on the host graph-POA
                "msa_graph": (("wf_global", "wf_ext"),
                              ("profile_dp", "profile_bt"), ()),
@@ -326,13 +363,13 @@ OPTION_NEED = {"ada_f2": ADAPTER_NEED, "ada_F": ADAPTER_NEED,
                # slice's second chunk)
                "unit_f2": (("wf_global",), ("wf_ext", "profile_dp",
                                             "profile_bt"), ()),
-               "scoring": (CONSENSUS_KERNELS, (), ("warp",)),
-               "seeding": (CONSENSUS_KERNELS, (), ("warp",)),
+               "scoring": (CONSENSUS_KERNELS, (), ("band",)),
+               "seeding": (CONSENSUS_KERNELS, (), ("band",)),
                # K3 at full width on the 60 bp units, the band kernel on
-               # the 3000 bp units' 4096 bucket; -P 2000 drops those
-               "fq_f3_l": (CONSENSUS_KERNELS, (), ("strips", "warp",
-                                                   "band")),
-               "fq_f4_filt": (CONSENSUS_KERNELS, (), ("strips", "warp"))}
+               # every band rung (the 3000 bp units' 4096 bucket too; -P
+               # 2000 drops those)
+               "fq_f3_l": (CONSENSUS_KERNELS, (), ("strips", "band")),
+               "fq_f4_filt": (CONSENSUS_KERNELS, (), ("strips", "band"))}
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
 # int32 results per clock per SM: 64 on the INT pipe (CUDA C++ Programming
@@ -521,10 +558,13 @@ class Checks:
                 or ENTRY_POINT.get(kernel) in self.only)
 
     def run(self, kernel, label, kern_fn, plain_fn, work, select=None,
-            reps=5, beside=None, library_fn=None, rate=None, first=None):
+            reps=5, beside=None, library_fn=None, rate=None, first=None,
+            cut=None):
         """Compare, then time and bound (work() -> (ops, bytes); the ops at
         rate, default the int32 rate); with first, plain_fn computes the
-        first `first` problems alone and the outputs are compared there;
+        first `first` problems alone and the outputs are compared there
+        (cut: the kernel's output cut to them, default each output's
+        first rows; select then applies to the plain version's alone);
         beside: {name: fn} of other kernels of the same function (the first
         version, the other routes' kernels), each equal and timed beside as
         name_ms; with library_fn, the PyTorch call timed beside
@@ -533,7 +573,10 @@ class Checks:
             return
         beside = beside or {}
         sel = select or (lambda x: x)
-        cut = (lambda x: tuple(y[:first] for y in x)) if first else sel
+        if not first:
+            cut = sel
+        elif cut is None:
+            cut = lambda x: tuple(y[:first] for y in x)  # noqa: E731
         plain_ms, want = timed(plain_fn)
         got, want = cut(kern_fn()), sel(want)
         err = max_err(got, want)
@@ -624,6 +667,32 @@ def sweep_lanes(checks, label, q, ql, t, tl, sc):
               flush=True)
 
 
+def sweep_routes(rng, dev):
+    """wf_global's warp and CTA kernels at ROUTE_SWEEP's shapes, each equal
+    to the other, with both times and global_route's choice."""
+    from tidehunter_tpu_torch.ops import wavefront as WF
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for kind, LQ, LT, sizes in ROUTE_SWEEP:
+        iden_only = kind == "iden_only"
+        for B in sizes:
+            q, ql, t, tl = pair_batch(rng, B, LQ, LT, dev)
+            qle = (torch.zeros_like(ql) if iden_only else
+                   (torch.rand(B, device=dev) * (ql + 2).float()).int())
+            run = {r: (lambda r=r: WF.global_batch(
+                q, ql, t, tl, qle, WF.DEFAULT_SCORES, iden_only, kernel=r))
+                for r in WF.GLOBAL_ROUTES}
+            err = max_err(run["warp"](), run["cta"]())
+            if err > TOL:
+                raise AssertionError(f"wf_global routes {kind} ({LQ},{LT}) "
+                                     f"B={B}: max_abs_err {err}")
+            ms = {r: cuda_ms(fn, 3) for r, fn in run.items()}
+            print(f"route wf_global {kind} ({LQ},{LT}) B={B}: warp="
+                  f"{ms['warp']:.4f} cta={ms['cta']:.4f} "
+                  f"(global_route: {WF.global_route(B, LQ, LT, sms)})",
+                  flush=True)
+
+
 def dp_cells(qlen, ncol, W) -> float:
     """Cells a profile DP batch needs: (j, c) in [1, qlen] x [1, ncol],
     banded |c - j| <= W - 8 (a cell of row r = j + c - 2 at lane c - 1)."""
@@ -671,7 +740,7 @@ def row_cost(dev, msa):
     args, live = msa_round(np.random.default_rng(12), msa, T, W, 1, L, dev)
     nrows = int(live.sum())
     want = MD.profile_dp_plain(*args)[:nrows]
-    for name in ("first", "warp", "band"):
+    for name in ("first", "band"):
         fn = lambda name=name: MD.profile_dp(*args, kernel=name)  # noqa: E731
         err = max_err((fn()[:nrows],), (want,))
         if err > TOL:
@@ -683,7 +752,8 @@ def row_cost(dev, msa):
 
 def phase_kernels(checks, dev, lanes=True):
     """Every check of WF_CASES and MSA_CASES; with lanes, wf_ext's lanes a
-    thread timed at EXT_LANES_SWEEP."""
+    thread timed at EXT_LANES_SWEEP; in a --kernels run that names
+    wf_global, its two routes at ROUTE_SWEEP."""
     from tidehunter_tpu_torch.ops import msa_device as MD
     from tidehunter_tpu_torch.ops import wavefront as WF
 
@@ -713,13 +783,18 @@ def phase_kernels(checks, dev, lanes=True):
         qle = (torch.zeros_like(ql) if iden_only else
                (torch.rand(B, device=dev) * (ql + 2).float()).int())
         n = PLAIN_FIRST if (kind, B, LQ, LT) in FIRST_ONLY else B
-        checks.run("wf_global", label,
+        # the kernel of global_route's choice, the other route's beside
+        route = WF.global_route(B, LQ, LT, checks.card.sms)
+        beside = {r: (lambda r=r: WF.global_batch(q, ql, t, tl, qle, sc,
+                                                  iden_only, kernel=r))
+                  for r in WF.GLOBAL_ROUTES if r != route}
+        checks.run(GLOBAL_KERNEL[route], label,
                    lambda: WF.global_batch(q, ql, t, tl, qle, sc, iden_only),
                    lambda: WF.global_plain(q[:n], ql[:n], t[:n], tl[:n],
                                            qle[:n], sc, not iden_only),
                    lambda: (OPS_PER_CELL[f"wf_global {kind}"] * cells,
                             _nbytes(q, ql, t, tl, qle) + 2 * B * 4),
-                   first=n if n < B else None)
+                   first=n if n < B else None, beside=beside)
 
     # one unit round of a region batch: the second unit against the
     # profile of the first (skipped when no profile kernel is checked, as
@@ -739,25 +814,30 @@ def phase_kernels(checks, dev, lanes=True):
         dp_bytes = (_nbytes(unit, qlen, ncol, sub, wl, wdel, wl2, wdel2)
                     + float(live.sum()) * (W or T))
         # K3 (full width) and K4 (banded) are one entry point; every shape
-        # off the warp kernel's route is timed against the first version,
-        # and every band of the 4096 bucket against the kernels of the
-        # routes profile_dp did not pick there
-        route = MD.dp_route(T, W)
-        beside = {}
-        if route != "warp":
-            beside["first_version"] = (
-                lambda: MD.profile_dp(*args, kernel="first"))
-        if T >= 2048 and W in MD.BAND_WIDTHS:
+        # is timed against the first version, and every band rung against
+        # the strips, the route profile_dp did not pick there.  K4's
+        # summary rows: the slice's band rounds (profile_dp) and the 4096
+        # bucket's (profile_dp_band)
+        route = MD.dp_route(W)
+        beside = {"first_version": (
+            lambda: MD.profile_dp(*args, kernel="first"))}
+        if W in MD.BAND_WIDTHS:
             for other in MD.DP_ROUTES:
                 if other != route:
                     beside[other] = (lambda other=other: MD.profile_dp(
                         *args, kernel=other))
         kernel = ("profile_dp_full" if W is None else "profile_dp_band"
-                  if route == "band" else "profile_dp")
+                  if T == MD.BUCKETS[-1] else "profile_dp")
+        n = PLAIN_FIRST if (T, W, B, L) in DP_FIRST else B
+        live_n = live[:, :n]
         checks.run(kernel, label, lambda: MD.profile_dp(*args),
-                   lambda: MD.profile_dp_plain(*args),
+                   lambda: MD.profile_dp_plain(
+                       *(a[:n] if torch.is_tensor(a) else a
+                         for a in args)),
                    lambda: (dp_ops, dp_bytes),
-                   select=lambda d: (d[live],), beside=beside)
+                   select=lambda d: (d[live_n],), beside=beside,
+                   first=n if n < B else None,
+                   cut=lambda d: (d[:, :n][live_n],))
         if (T, W, B, L) in DP_ONLY:
             continue
         dirs = MD.profile_dp(*args)
@@ -770,6 +850,8 @@ def phase_kernels(checks, dev, lanes=True):
                             steps + _nbytes(qlen, ncol, *bt)))
     if checks.wants("profile_dp"):
         row_cost(dev, msa)
+    if checks.only and checks.wants("wf_global"):
+        sweep_routes(rng, dev)
     if checks.wants("myers_hw"):
         check_myers(checks, dev, rng)
 
@@ -1109,7 +1191,7 @@ def trace_run(run, dev, label):
         spans.append((ev.time_range.start, ev.time_range.end))
         name = ev.name.replace("(anonymous namespace)::", "")
         name = name.split("(")[0].removeprefix("void ")
-        if "wf_global_kernel" in name:
+        if "wf_global_kernel" in name or "wf_global_cta" in name:
             glob_ms.append((ev.time_range.start,
                             (spans[-1][1] - spans[-1][0]) / 1e3))
         ms, n = by_name.get(name, (0.0, 0))
@@ -1177,18 +1259,22 @@ class LaunchShapes:
 
 
 def check_band_route(shapes, routes, label):
-    """The run reached the 4096 bucket's W=256 (BAND_SHAPE) and
-    profile_dp launched the kernel of that shape's route there: fails
-    otherwise."""
+    """The run reached the 4096 bucket's W=256 (BAND_SHAPE), profile_dp
+    launched the kernel of that shape's route there, and every launch took
+    dp_route's kernel: fails otherwise."""
     from tidehunter_tpu_torch.ops import msa_device as MD
 
     if not any((T, W) == BAND_SHAPE for T, W, _ in shapes.calls):
         raise AssertionError(f"{label}: no profile_dp launch at T, W = "
                              f"{BAND_SHAPE}")
-    route = MD.dp_route(*BAND_SHAPE)
+    route = MD.dp_route(BAND_SHAPE[1])
     if not routes.get(route):
         raise AssertionError(f"{label}: profile_dp's {route} kernel, the "
                              f"route of {BAND_SHAPE}, did not launch")
+    off = {MD.dp_route(W) for T, W, _ in shapes.calls} ^ set(routes)
+    if off:
+        raise AssertionError(f"{label}: profile_dp launches by route "
+                             f"{routes} against dp_route's {off}")
 
 
 def phase_periods(tmp, dev):
@@ -1230,6 +1316,7 @@ def phase_periods(tmp, dev):
         wall = time.perf_counter() - t0
     launches = {k: v for k, v in K.launches().items() if k in SLICE_KERNELS}
     routes = dict(K.PROFILE_DP.routes)
+    groutes = dict(K.WF_GLOBAL.routes)
     snap = METRICS.snapshot()
     full = int(snap.get("msa_full_rounds", 0))
     mix = ", ".join(f"{n} of {u} bp x {c}"
@@ -1244,10 +1331,14 @@ def phase_periods(tmp, dev):
         f"{k}={v}" for k, v in sorted(snap.items())), flush=True)
     print(f"periods profile_dp launches: {shapes.summary()}", flush=True)
     print(f"periods profile_dp routes: {route_summary(shapes)}; launches "
-          f"by route {json.dumps(routes)}", flush=True)
+          f"by route {json.dumps(routes)}; wf_global launches by route "
+          f"{json.dumps(groutes)}", flush=True)
     if full <= 0:
         raise AssertionError("the periods path ran no full-width round")
     check_band_route(shapes, routes, "periods")
+    if not groutes.get("cta"):
+        raise AssertionError("periods: wf_global's CTA kernel did not "
+                             "launch")
     idle = [k for k, v in launches.items() if v <= 0]
     if idle:
         raise AssertionError(f"kernels not launched by the periods path: "
@@ -1284,7 +1375,8 @@ def phase_periods(tmp, dev):
           f"pool of host processes", flush=True)
     check_cell_digests("periods", reads, sink.getvalue())
     return ({**launches, "profile_dp_full": full,
-             "profile_dp_band": routes.get("band", 0)},
+             "profile_dp_band": routes.get("band", 0),
+             "wf_global_cta": groutes["cta"]},
             (fa, sink.getvalue()))
 
 
@@ -2045,25 +2137,29 @@ def route_summary(shapes) -> str:
     largest B, from a LaunchShapes."""
     from tidehunter_tpu_torch.ops import msa_device as MD
 
+    from tidehunter_tpu_torch.ops import wavefront as WF
+
     dp = {}
     for T, W, B in shapes.calls:
-        key = (MD.dp_route(T, W), T, W)
-        n, hi = dp.get(key, (0, 0))
-        dp[key] = (n + 1, max(hi, B))
+        key = (MD.dp_route(W), T, W)
+        n, lo, hi = dp.get(key, (0, B, B))
+        dp[key] = (n + 1, min(lo, B), max(hi, B))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     glob = {}
     for LQ, LT, B in shapes.glob:
-        n, hi = glob.get((LQ, LT), (0, 0))
-        glob[(LQ, LT)] = (n + 1, max(hi, B))
-    largest = sorted(glob.items(), key=lambda x: -x[0][0] * x[0][1])[:4]
+        key = (WF.global_route(B, LQ, LT, sms), LQ, LT)
+        n, hi = glob.get(key, (0, 0))
+        glob[key] = (n + 1, max(hi, B))
+    largest = sorted(glob.items(), key=lambda x: -x[0][1] * x[0][2])[:6]
     return ("profile_dp " + "; ".join(
-        f"{r} T={T} W={W or 'full'}: {n} launches, B up to {hi}"
-        for (r, T, W), (n, hi) in sorted(
+        f"{r} T={T} W={W or 'full'}: {n} launches, B {lo}-{hi}"
+        for (r, T, W), (n, lo, hi) in sorted(
             dp.items(), key=lambda x: (x[0][0], x[0][1], x[0][2] or 0)))
         + " | K3 full-width launches "
-        + str(sum(n for (_, _, W), (n, _) in dp.items() if W is None))
+        + str(sum(n for (_, _, W), (n, *_) in dp.items() if W is None))
         + " | wf_global largest " + "; ".join(
-            f"({lq},{lt}): {n} launches, B up to {hi}"
-            for (lq, lt), (n, hi) in largest))
+            f"{r} ({lq},{lt}): {n} launches, B up to {hi}"
+            for (r, lq, lt), (n, hi) in largest))
 
 
 def _set_env(env, names):
@@ -2128,8 +2224,9 @@ def phase_corpus(tmp, dev):
                   f"the largest bucket (host rule) "
                   f"{int(snap.get('msa_host_oversize', 0))}", flush=True)
             print(f"accuracy {label} routes: {route_summary(shapes)}; "
-                  f"profile_dp launches by route {json.dumps(routes)}",
-                  flush=True)
+                  f"profile_dp launches by route {json.dumps(routes)}; "
+                  f"wf_global launches by route "
+                  f"{json.dumps(K.WF_GLOBAL.routes)}", flush=True)
             check_band_route(shapes, routes, f"accuracy {label}")
             if seeds.routes:
                 print(f"accuracy {label} seed_hits routes: "
@@ -2374,6 +2471,10 @@ def phase_bench():
 KERNEL_META = {
     "wf_global": ("tidehunter_tpu_torch/csrc/wavefront.cu",
                   "tidehunter_tpu/ops/wavefront.py:154"),
+    # the CTA route of wf_global (launches: the periods path's, where its
+    # (3072,3072) launch reaches it)
+    "wf_global_cta": ("tidehunter_tpu_torch/csrc/wavefront.cu",
+                      "tidehunter_tpu/ops/wavefront.py:154"),
     "wf_ext": ("tidehunter_tpu_torch/csrc/wavefront.cu",
                "tidehunter_tpu/ops/wavefront.py:333"),
     # one entry point serves both profile DP variants: the banded one
@@ -2480,6 +2581,7 @@ def main(argv=None) -> int:
         period_launches, periods_run = phase_periods(tmp, dev)
         launches["profile_dp_full"] = period_launches["profile_dp_full"]
         launches["profile_dp_band"] = period_launches["profile_dp_band"]
+        launches["wf_global_cta"] = period_launches["wf_global_cta"]
         print(f"periods phase: {time.perf_counter() - t0:.1f} s", flush=True)
         t0 = time.perf_counter()
         launches["myers_hw"], largest = phase_options(tmp, dev)
@@ -2524,7 +2626,7 @@ def main(argv=None) -> int:
                      # seed_hits' is torch.sort over its seed words
                      "library_ms": row.get("library_ms")})
         for extra in ("variants_ms", "first_version_ms", "warp_ms",
-                      "strips_ms", "band_ms", "walk"):
+                      "cta_ms", "strips_ms", "band_ms", "walk"):
             if extra in row:
                 rows[-1][extra] = row[extra]
     print(json.dumps({"kernels": rows}))

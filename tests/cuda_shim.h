@@ -104,7 +104,12 @@ inline int cudaDeviceGetAttribute(int* v, int attr, int) {
   *v = env ? std::atoi(env) : (smem ? 232448 : 132);
   return 0;
 }
-template <class F> inline int cudaFuncSetAttribute(F, int, int) { return 0; }
+// as the card: a dynamic shared-memory size past the opt-in limit fails
+template <class F> inline int cudaFuncSetAttribute(F, int attr, int v) {
+  int most = 0;
+  cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin, 0);
+  return attr == cudaFuncAttributeMaxDynamicSharedMemorySize && v > most;
+}
 inline int cudaGetLastError() { return 0; }
 inline const char* cudaGetErrorString(int) { return "cuda_shim"; }
 

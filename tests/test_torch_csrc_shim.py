@@ -1,8 +1,9 @@
 """The port's CUDA sources for the redesigned kernels, run on the CPU.
 
-csrc/wavefront.cu (``wf_global``, ``wf_ext``), csrc/profile_dp.cu
-(``profile_dp``: its warp kernel, its band kernel and its strips, one CTA
-or a cluster a region; ``profile_dp_first``, the first version;
+csrc/wavefront.cu (``wf_global``: its warp kernel and its CTA kernel;
+``wf_global_on``, a route's kernel at any shape and geometry; ``wf_ext``),
+csrc/profile_dp.cu (``profile_dp``: its band kernel and its strips, one
+CTA or a cluster a region; ``profile_dp_first``, the first version;
 ``profile_dp_on``, a route's kernel at any shape), csrc/profile_bt.cu
 (``profile_bt``), csrc/myers_hw.cu (``myers_hw``), csrc/seed_hits.cu
 (``seed_hits``: shared-memory and global-scratch routes, 32- and 64-bit
@@ -10,7 +11,8 @@ seed words), csrc/chain_dp.cu (``chain_dp``) and csrc/dtype_micro.cu
 (``dtype_micro``, the element-type rate tool's step at every type) are
 compiled with the host's C++ compiler over tests/cuda_shim.h, which
 emulates the CUDA subset they use (threads, warp shuffles and ballots,
-barriers, shared memory, cp.async copies, Hopper's bulk copies and their
+barriers, shared memory up to the card's 227 KB a CTA, cp.async copies,
+Hopper's bulk copies and their
 mbarriers, thread-block clusters and their distributed shared memory, the
 DPX intrinsics; bfloat16 arithmetic comes from BF16_SHIM below), and
 called
@@ -143,7 +145,8 @@ def lib(tmp_path_factory):
                     "-I", str(out), "-o", str(so), *cpps], check=True)
     dll = ctypes.CDLL(str(so))
     fns = {}
-    for k in (K.WF_GLOBAL, K.WF_EXT, K.PROFILE_DP, K.PROFILE_DP_FIRST,
+    for k in (K.WF_GLOBAL, K.WF_GLOBAL_ON, K.WF_EXT, K.PROFILE_DP,
+              K.PROFILE_DP_FIRST,
               K.PROFILE_DP_ON, K.PROFILE_BT, K.MYERS_HW, K.SEED_HITS,
               K.CHAIN_DP, K.DTYPE_MICRO, K.WF_DTYPE_PROBE):
         fn = getattr(dll, k.name)
@@ -162,7 +165,9 @@ def lib(tmp_path_factory):
     fns["shim_last_cluster"] = dll.shim_last_cluster
     fns["shim_take_mbars"] = dll.shim_take_mbars
     fns["profile_dp_route"] = dll.profile_dp_route
-    fns["profile_dp_route"].argtypes = [ctypes.c_int] * 2
+    fns["profile_dp_route"].argtypes = [ctypes.c_int]
+    fns["wf_global_route"] = dll.wf_global_route
+    fns["wf_global_route"].argtypes = [ctypes.c_int] * 4
     return fns
 
 
@@ -189,26 +194,171 @@ def _pairs(rng, B, LQ, T):
     return q, qlen, t, tlen, qle
 
 
-# (B, LQ, T, global scratch): strips of 4, 8 and 16 columns; two and three
-# column tiles with the edge column in shared memory or global scratch
-@pytest.mark.parametrize("B,LQ,T,scratch", [
-    (8, 40, 40, False), (8, 30, 200, False), (4, 20, 700, False),
-    (4, 20, 700, True), (5, 9, 1100, True)])
-def test_wf_global_source_matches_plain(lib, B, LQ, T, scratch):
-    q, qlen, t, tlen, qle = _pairs(np.random.default_rng(T + B), B, LQ, T)
+def _global_check(lib, B, LQ, T, entry="wf_global", route=(), scratch=False,
+                  seed=None):
+    """wf_global's entry point (or wf_global_on with route = (route, nw,
+    cl)) on B problems of (LQ, T), both variants, equal to the plain
+    version."""
+    q, qlen, t, tlen, qle = _pairs(np.random.default_rng(
+        T + B if seed is None else seed), B, LQ, T)
     for iden_only in (True, False):
         iden = np.zeros(B, np.int32)
         tleft = np.zeros(B, np.int32)
         scr = np.zeros(B * LQ * 4, np.int32) if scratch else None
-        rc = lib["wf_global"](_p(q), LQ, _p(t), T, _p(qlen), _p(tlen),
-                              _p(qle), B, *TW.DEFAULT_SCORES, int(iden_only),
-                              _p(iden), _p(tleft), _p(scr), None)
+        rc = lib[entry](*route, _p(q), LQ, _p(t), T, _p(qlen), _p(tlen),
+                        _p(qle), B, *TW.DEFAULT_SCORES, int(iden_only),
+                        _p(iden), _p(tleft), _p(scr), None)
         assert rc == 0
         wi, wt = TW.global_plain(
             *map(torch.from_numpy, (q, qlen, t, tlen, qle)),
             TW.DEFAULT_SCORES, not iden_only)
         np.testing.assert_array_equal(iden, wi.numpy())
         np.testing.assert_array_equal(tleft, wt.numpy())
+
+
+# (B, LQ, T, global scratch): strips of 4, 8 and 16 columns; two and three
+# column tiles with the edge column in shared memory or global scratch.
+# One SM, so that global_route keeps these launches on the warp kernel.
+@pytest.mark.parametrize("B,LQ,T,scratch", [
+    (8, 40, 40, False), (8, 30, 200, False), (4, 20, 700, False),
+    (4, 20, 700, True), (5, 9, 1100, True)])
+def test_wf_global_source_matches_plain(lib, monkeypatch, B, LQ, T,
+                                        scratch):
+    monkeypatch.setenv("CUDA_SHIM_SMS", "1")
+    assert TW.global_route(B, LQ, T, 1) == "warp"
+    _global_check(lib, B, LQ, T, scratch=scratch)
+
+
+# (B, LQ, T, warps a CTA, CTAs a problem): one tile a warp at 4, 8 and 16
+# columns a lane; two tiles on two warps of one CTA; three tiles wrapping
+# round one warp and round two; a cluster of two CTAs (the ring and the
+# wrap column through distributed shared memory); four tiles over a
+# cluster of two CTAs of two warps; the launcher's own geometry (0, 0)
+@pytest.mark.parametrize("B,LQ,T,nw,cl", [
+    (5, 30, 100, 1, 1), (5, 30, 200, 1, 1), (3, 20, 700, 2, 1),
+    (3, 20, 1100, 1, 1), (3, 20, 1100, 2, 1), (2, 18, 1100, 1, 2),
+    (2, 40, 1600, 2, 2), (3, 25, 1100, 0, 0)])
+def test_wf_global_cta_source_matches_plain(lib, B, LQ, T, nw, cl):
+    _global_check(lib, B, LQ, T, "wf_global_on",
+                  (TW.GLOBAL_ROUTES.index("cta"), nw, cl))
+
+
+def test_wf_global_routes_cta_where_sms_idle(lib, monkeypatch):
+    """The entry point takes the CTA kernel for few problems past one tile
+    (global_route) and equals the plain version there; a cluster's launch
+    shows it (cta_shape spreads 3 tiles of a few problems over 1 CTA, 6
+    over 2); a query no longer than the skew stays on the warp kernel."""
+    monkeypatch.setenv("CUDA_SHIM_SMS", "132")
+    assert TW.global_route(3, 20, 1100, 132) == "cta"
+    _global_check(lib, 3, 20, 1100)
+    assert lib["shim_last_cluster"]() == 1
+    assert TW.global_route(2, 20, 3000, 132) == "cta"
+    _global_check(lib, 2, 20, 3000)
+    assert lib["shim_last_cluster"]() == 2
+    assert TW.global_route(2, 17, 3000, 132) == "warp"   # query < skew
+
+
+def test_wf_global_on_refuses_bad_geometry(lib):
+    """wf_global_on refuses an unknown route, more than 8 warps a CTA or
+    8 CTAs a problem, before any access."""
+    one = np.ones(1, np.int32)
+    args = (_p(np.zeros(1, np.uint8)), 1, _p(np.zeros(1, np.uint8)), 1000,
+            *(_p(one),) * 3, 1, *TW.DEFAULT_SCORES, 1, _p(one), _p(one),
+            None, None)
+    for route, nw, cl in ((2, 0, 0), (1, 9, 1), (1, 1, 9), (1, -1, 1)):
+        assert lib["wf_global_on"](route, nw, cl, *args) == 1
+
+
+def test_wf_global_routes_match_python(lib):
+    """The entry point's global_route (the host query wf_global_route) is
+    ops/wavefront.global_route at every strip width, past one tile, about
+    the launch sizes of the crossover at 2, 3 and 6 tiles, about the
+    shortest query the CTA kernel takes and about the longest whose CTA
+    fits in shared memory (13191 rows at 12 and 16 tiles wrapping round 8
+    warps); the constants agree."""
+    src = (K.CSRC / "wavefront.cu").read_text()
+    consts = {k: int(re.search(rf"constexpr int {k} = (\d+);", src)[1])
+              for k in ("CTA_S", "CTA_SKEW", "CTA_RB", "CTA_THREADS",
+                        "CTA_CLUSTER", "CTA_SPREAD")}
+    assert TW.CTA_SKEW_STEPS == consts["CTA_S"] * consts["CTA_SKEW"]
+    assert (TW.CTA_RB, TW.CTA_THREADS, TW.CTA_CLUSTER, TW.CTA_SPREAD) == (
+        consts["CTA_RB"], consts["CTA_THREADS"], consts["CTA_CLUSTER"],
+        consts["CTA_SPREAD"])
+    assert re.search(r"constexpr int CTA_SMEM_MAX = 227 \* 1024;", src)
+    assert TW.SMEM_LIMIT == 227 * 1024
+    for sms in (132, 66, 1):
+        for T in (100, 128, 200, 256, 512, 513, 640, 1024, 1536, 2048,
+                  3072, 4096, 6144, 8192):
+            for B in (1, 2, 3, 8, 131, 256, 329, 330, 331, 384, 1285, 1319,
+                      1320, 1321, 2969, 2970, 2971, 8249, 8250, 8251):
+                for LQ in (1, 16, 17, 18, 128, 3072, 8192, 13191, 13192,
+                           224256, 224257):
+                    got = TW.GLOBAL_ROUTES[lib["wf_global_route"](
+                        B, LQ, T, sms)]
+                    assert got == TW.global_route(B, LQ, T, sms), (
+                        B, LQ, T, sms)
+
+
+_LONG_TARGET_PLAIN = {}
+
+
+def _long_target_check(lib, LQ, T, route, scratch):
+    """Two problems of a short query (20 and 37 bases) in a query buffer LQ
+    wide against targets of 4700 and 300 bases in a bucket T wide: the
+    entry point (route None) or wf_global_on's route with the launcher's
+    geometry, both variants, equal to the plain version (the same problems
+    at every LQ, so it runs once a variant)."""
+    rng = np.random.default_rng(17)
+    q = np.full((2, LQ), 4, np.uint8)
+    t = np.full((2, T), 4, np.uint8)
+    qlen = np.array([20, 37], np.int32)
+    tlen = np.array([4700, 300], np.int32)
+    for b in range(2):
+        q[b, :qlen[b]] = rng.integers(0, 4, qlen[b])
+        t[b, :tlen[b]] = rng.integers(0, 4, tlen[b])
+    qle = np.array([5, 0], np.int32)
+    entry = "wf_global" if route is None else "wf_global_on"
+    head = () if route is None else (TW.GLOBAL_ROUTES.index(route), 0, 0)
+    for iden_only in (True, False):
+        iden = np.zeros(2, np.int32)
+        tleft = np.zeros(2, np.int32)
+        scr = np.zeros(2 * LQ * 4, np.int32) if scratch else None
+        rc = lib[entry](*head, _p(q), LQ, _p(t), T, _p(qlen), _p(tlen),
+                        _p(qle), 2, *TW.DEFAULT_SCORES, int(iden_only),
+                        _p(iden), _p(tleft), _p(scr), None)
+        if rc:
+            return rc
+        key = (T, iden_only)
+        if key not in _LONG_TARGET_PLAIN:
+            _LONG_TARGET_PLAIN[key] = [x.numpy() for x in TW.global_plain(
+                *map(torch.from_numpy, (q[:, :40], qlen, t, tlen, qle)),
+                TW.DEFAULT_SCORES, not iden_only)]
+        wi, wt = _LONG_TARGET_PLAIN[key]
+        np.testing.assert_array_equal(iden, wi)
+        np.testing.assert_array_equal(tleft, wt)
+    return 0
+
+
+def test_wf_global_route_past_cta_shared_memory(lib, monkeypatch):
+    """At T = 6144 with a problem for every SM the CTA kernel runs 8 warps
+    a CTA and keeps a wrap column of LQ int4 rows: up to LQ = 13191 its CTA
+    fits in 227 KB and the entry point takes it (exact, the wrap column
+    in use); past that global_route keeps the warp kernel (its edge
+    columns in the global scratch the wrapper gives), which stays exact,
+    and the CTA kernel forced there is refused before any access."""
+    monkeypatch.setenv("CUDA_SHIM_SMS", "1")
+    assert TW.cta_shape(2, 6144, 1) == (8, 1)
+    assert TW.cta_smem(13191, 6144, 8, 1) <= TW.SMEM_LIMIT
+    assert TW.cta_smem(13192, 6144, 8, 1) > TW.SMEM_LIMIT
+    assert TW.global_route(2, 13191, 6144, 1) == "cta"
+    assert _long_target_check(lib, 13191, 6144, None, False) == 0
+    assert lib["shim_last_cluster"]() == 1
+    assert TW.global_route(2, 13300, 6144, 1) == "warp"
+    assert _long_target_check(lib, 13300, 6144, None, True) == 0
+    assert _long_target_check(lib, 13300, 6144, "cta", False) == 1
+    # the warp kernel without its scratch would want 832 KB of shared
+    # memory: refused as the card refuses it
+    assert _long_target_check(lib, 13300, 6144, "warp", False) == 1
 
 
 def _dp_round(rng, T, B, lens):
@@ -250,7 +400,7 @@ def _dp_check(lib, entry, T, W, B, lens, seed, *extra, route=None):
     assert (dirs[~live] == 0x77).all()
 
 
-# (T, W, B, unit length): the warp kernel on each band rung; the strips
+# (T, W, B, unit length): the band kernel on each band rung; the strips
 # at full width (one warp a region) and at a band width the rungs do not
 # use
 @pytest.mark.parametrize("T,W,B,L", [
@@ -323,18 +473,21 @@ def test_profile_dp_band_source_matches_plain(lib, T, W):
 
 def test_profile_dp_routes_match_python(lib):
     """The entry point's dp_route (the host query profile_dp_route) is
-    msa_device.dp_route on every bucket and band width."""
-    for T in TMD.BUCKETS:
-        for W in (None, 128, 136, 256, 512):
-            got = TMD.DP_ROUTES[lib["profile_dp_route"](T, W or 0)]
-            assert got == TMD.dp_route(T, W), (T, W)
+    msa_device.dp_route at every band width: the band kernel on every band
+    rung (at every bucket, T = 2048 included: the route reads W alone),
+    the strips elsewhere."""
+    for W in (None, 64, 128, 136, 256, 264, 512):
+        got = TMD.DP_ROUTES[lib["profile_dp_route"](W or 0)]
+        assert got == TMD.dp_route(W), W
+    for W in TMD.BAND_WIDTHS:
+        assert TMD.DP_ROUTES[lib["profile_dp_route"](W)] == "band"
 
 
-@pytest.mark.parametrize("route", ["strips", "warp", "band"])
+@pytest.mark.parametrize("route", ["strips", "band"])
 def test_profile_dp_on_runs_each_route(lib, route):
     """profile_dp_on runs the named route's kernel wherever the route does
-    not take the shape: all three equal the plain version at T = 640, W =
-    256 (the warp kernel's rung) and at the 4096 bucket's W = 128."""
+    not take the shape: both equal the plain version at T = 640, W = 256
+    and at the 4096 bucket's W = 128."""
     _dp_check(lib, "profile_dp_on", 640, 256, 2, [(300, 310), (5, 200)], 3,
               route=route)
     _dp_check(lib, "profile_dp_on", 4096, 128, 1, [(70, 90)], 4,
@@ -342,13 +495,13 @@ def test_profile_dp_on_runs_each_route(lib, route):
 
 
 def test_profile_dp_on_refuses_what_no_kernel_takes(lib):
-    """A band width the warp and band kernels lack, a window as wide as
-    the profile, a wide profile and an unknown route: refused before any
+    """A band width the band kernel lacks, a window as wide as the
+    profile, a wide profile and an unknown route: refused before any
     access."""
     one = np.ones(1, np.int32)
     args = (_p(np.zeros(1, np.uint8)), 1, *(_p(one),) * 7, 1)
-    for route, T, W in ((1, 640, 136), (2, 640, 136), (2, 256, 256),
-                        (0, 4097, 0), (3, 640, 256)):
+    for route, T, W in ((1, 640, 136), (1, 256, 256), (0, 4097, 0),
+                        (2, 640, 256), (3, 640, 256)):
         assert lib["profile_dp_on"](route, *args, T, W, 4, 2, 4, 24, 1, 24,
                                     _p(np.zeros(1, np.uint8)), None) == 1
 
@@ -357,10 +510,20 @@ def test_profile_dp_band_route_at_4096(lib):
     """profile_dp at the 4096 bucket's W = 256 launches the band kernel
     (its bulk copies initialise 16 mbarriers a region) and equals the
     plain version; short units keep the shim's run short."""
-    assert TMD.dp_route(4096, 256) == "band"
+    assert TMD.dp_route(256) == "band"
     lib["shim_take_mbars"]()
     _dp_check(lib, "profile_dp", 4096, 256, 2, [(150, 160), (90, 60)], 11)
     assert lib["shim_take_mbars"]() == 2 * 16
+
+
+def test_profile_dp_band_route_at_2048(lib):
+    """profile_dp at the 2048 bucket's W = 256 launches the band kernel
+    (its bulk copies initialise 8 mbarriers a region) and equals the
+    plain version; short units keep the shim's run short."""
+    assert TMD.dp_route(256) == "band"
+    lib["shim_take_mbars"]()
+    _dp_check(lib, "profile_dp", 2048, 256, 2, [(150, 160), (90, 60)], 12)
+    assert lib["shim_take_mbars"]() == 2 * 8
 
 
 @pytest.mark.parametrize("entry", ["profile_dp", "profile_dp_first"])

@@ -1,13 +1,15 @@
 """Index maps of the port's redesigned kernels, written once in NumPy.
 
-csrc/wavefront.cu's ``wf_global`` and ``wf_ext``, csrc/profile_dp.cu's
-banded ``profile_dp_warp`` and its ``profile_dp_strip`` and
-csrc/profile_bt.cu's ``profile_bt_warp`` compute the same integers as
-their plain versions in another order: state in registers, values
-crossing lanes by shuffles, tiles prefetched into shared memory.  The
-models below follow each schedule step by step (K1: lane lag, column
-tiles, the edge column carried between tiles; K4: the band window held as
-32 lanes x W/32 registers and shifted per row; K3: fixed column strips,
+csrc/wavefront.cu's ``wf_global`` (its warp and CTA kernels) and
+``wf_ext``, csrc/profile_dp.cu's ``profile_dp_band`` and
+``profile_dp_strip`` and csrc/profile_bt.cu's ``profile_bt_warp`` compute
+the same integers as their plain versions in another order: state in
+registers, values crossing lanes by shuffles, tiles prefetched into shared
+memory.  The models below follow each schedule step by step (K1: lane lag,
+column tiles, the edge column carried between tiles, or warps skewed by
+rounds over the tiles with rings between them; K4: the band window held
+one lane a thread over W/32 warps and shifted per row, edge words through
+slots; K3: fixed column strips,
 H by row parity, warps skewed by S rows with a ring of left columns,
 asserting that every ring entry a live cell reads holds its row; K5: the
 walk over a ring of prefetched tiles of rows, asserting that every byte it
@@ -215,19 +217,221 @@ def test_wf_global_schedule_matches_jax(monkeypatch):
         np.testing.assert_array_equal(got[1], np.asarray(jtl))
 
 
+def _cta_consts():
+    """wf_global_cta's steps a round, rounds of skew a warp and ring rows,
+    read from csrc/wavefront.cu."""
+    return tuple(_csrc("wavefront.cu", rf"constexpr int {n} = (\d+);")[0]
+                 for n in ("CTA_S", "CTA_SKEW", "CTA_RB"))
+
+
+class _Slots:
+    """Edge rows of one problem's rings or wrap column: each slot keeps the
+    (tile, row) it holds and the round that wrote it.  A read must find its
+    own (tile, row), written in an earlier round; within a round no slot is
+    read by one warp and written by another (the round's one barrier orders
+    nothing inside it; inside one warp the write depends on the read
+    through the lanes' shuffles)."""
+
+    def __init__(self):
+        self.vals, self.read_now, self.wrote_now = {}, {}, {}
+
+    def round(self):
+        for slot in self.read_now.keys() & self.wrote_now.keys():
+            assert self.read_now[slot] == {self.wrote_now[slot]}, (
+                "slot read and written", slot)
+        self.read_now, self.wrote_now = {}, {}
+
+    def put(self, slot, tag, n, val, warp):
+        self.vals[slot] = (tag, n, val)
+        self.wrote_now[slot] = warp
+
+    def get(self, slot, tag, n, warp):
+        got, wn, val = self.vals.get(slot, (None, None, None))
+        assert got == tag and wn < n, (slot, got, tag, wn, n)
+        self.read_now.setdefault(slot, set()).add(warp)
+        return val
+
+
+def wf_global_cta_model(q, qlen, t, tlen, qle, C, G, with_tl,
+                        scores=TW.DEFAULT_SCORES):
+    """(iden, tleft) by wf_global_cta's schedule, one problem at a time:
+    G warps (over the CTAs of a cluster) own the column tiles g, g + G, ...;
+    in round n warp g runs steps [(n - SKEW g - p P) S, + S) of its pass p
+    tile, lane k computing row i = s - k of its strip (lane 0's query code
+    and left edge at step s: the t = 0 boundary, or row s of the tile on
+    its left from the warp's ring, warp 0's from the wrap column); lane 31
+    writes row i of the tile's right edge to the right neighbour's ring of
+    RB rows, the last warp to the wrap column.  Every slot read is held to
+    the (tile, row) it must hold and to a write of an earlier round; iden
+    and t_left come from the lane owning column tlen - 1 at row qlen - 1."""
+    S, SKEW, RB = _cta_consts()
+    go = scores[2]
+    TWd = LANES * C
+    lane = np.arange(LANES)
+    iden = np.full(len(qlen), -1, np.int64)
+    tleft = np.full(len(qlen), -1, np.int64)
+    for b in range(len(qlen)):
+        ql, tl, qe = int(qlen[b]), int(tlen[b]), int(qle[b])
+        jS, has_q, tl_bound = ql - max(qe, 1), qe > 0, (tl + 1) & TLMASK
+        nt = -(-tl // TWd)
+        R0 = -(-(ql + 31) // S)
+        P = max(SKEW * G, R0 + SKEW)
+        npass = -(-nt // G)
+        rounds = (npass - 1) * P + SKEW * (nt - 1 - (npass - 1) * G) + R0
+        rings = [_Slots() for _ in range(G)]     # ring g: written by g - 1
+        wrap = _Slots()
+        st = [None] * G
+        for n in range(rounds):
+            for g in range(G - 1, -1, -1):       # any order inside a round
+                local = n - SKEW * g
+                if local < 0:
+                    continue
+                p, off = divmod(local, P)
+                j = p * G + g
+                if j >= nt or off >= R0:
+                    continue
+                t0 = j * TWd
+                c0 = t0 + lane * C
+                nl = min(31, (tl - 1 - t0) // C)
+                last = t0 + TWd >= tl
+                if off == 0:                     # the tile's first round
+                    cols = c0[:, None] + np.arange(C)
+                    st[g] = {
+                        "tv": np.where(cols < tl, t[b, np.minimum(
+                            cols, t.shape[1] - 1)], 4).astype(np.int64),
+                        "U": np.where(cols > 0, go, 0).astype(np.int64),
+                        **{k: np.zeros((LANES, C), np.int64)
+                           for k in ("Y", "A0", "A2")},
+                        **{k: np.zeros(LANES, np.int64)
+                           for k in ("l_v", "l_x", "l_a1", "l_a0", "dg")},
+                        "qv": np.full(LANES, 4, np.int64)}
+                z = st[g]
+                for s in range(off * S, off * S + S):
+                    if s >= ql + nl:
+                        continue
+                    i = s - lane
+                    z["qv"][0] = q[b, s] if s < ql else 4
+                    if t0 == 0:
+                        z["l_v"][0] = go if s > 0 else 0
+                        z["l_x"][0] = 0
+                        z["l_a1"][0] = tl_bound if with_tl and jS <= s else 0
+                        z["dg"][0] = (tl_bound if with_tl and s > 0
+                                      and jS <= s - 1 else 0)
+                    elif s < ql:
+                        src, slot = ((rings[g], s % RB) if g else (wrap, s))
+                        (z["l_v"][0], z["l_x"][0], z["l_a1"][0],
+                         z["l_a0"][0]) = src.get(slot, (j - 1, s), n, g)
+                    act = (i >= 0) & (i < ql) & (c0 < tl)
+                    vl, xl, a1l = z["l_v"].copy(), z["l_x"].copy(), \
+                        z["l_a1"].copy()
+                    dgl = z["dg"].copy()
+                    qv = z["qv"]
+                    for c in range(C):
+                        tc = c0 + c
+                        tv = z["tv"][:, c]
+                        u, v, x, y, d, b08, b10 = _diff_core(
+                            qv, tv, z["U"][:, c], z["Y"][:, c], vl, xl,
+                            scores)
+                        eq = (qv == tv).astype(np.int64)
+                        a2p = z["A2"][:, c]
+                        if with_tl:
+                            is_jS = i == jS
+                            hq = tl - tc if has_q else tl - 1 - tc
+                            hi = tl - tc - 1 if has_q else tl - 1 - tc
+                            M = (((dgl >> TLB) + eq) << TLB) | np.where(
+                                is_jS, (hq + 1) & TLMASK, dgl & TLMASK)
+                            I = (a2p & ~TLMASK) | np.where(
+                                is_jS, (hi + 1) & TLMASK, a2p & TLMASK)
+                        else:
+                            M, I = dgl + eq, a2p
+                        D = a1l
+                        a0 = np.where(d == 0, M, np.where(d == 1, D, I))
+                        dgl = np.where(act, z["A0"][:, c], dgl)
+                        for k, new in (("U", u), ("Y", y), ("A0", a0),
+                                       ("A2", np.where(b10, I, a0))):
+                            z[k][:, c] = np.where(act, new, z[k][:, c])
+                        vl = np.where(act, v, vl)
+                        xl = np.where(act, x, xl)
+                        a1l = np.where(act, np.where(b08, D, a0), a1l)
+                        for k in np.nonzero(act & (i == ql - 1)
+                                            & (tc == tl - 1))[0]:
+                            assert iden[b] == -1, "two lanes end it"
+                            iden[b] = a0[k] >> TLB if with_tl else a0[k]
+                            tleft[b] = ((tl if qe > ql else
+                                         (a0[k] & TLMASK) - 1)
+                                        if with_tl else 0)
+                    if act[31] and not last:
+                        r = int(i[31])
+                        val = (vl[31], xl[31], a1l[31], z["A0"][31, C - 1])
+                        if g + 1 < G:
+                            rings[g + 1].put(r % RB, (j, r), n, val, g)
+                        else:
+                            wrap.put(r, (j, r), n, val, g)
+                    z["dg"] = z["l_a0"].copy()
+                    up = lambda x: np.concatenate([x[:1], x[:-1]])  # noqa
+                    z["l_v"], z["l_x"], z["l_a1"] = up(vl), up(xl), up(a1l)
+                    z["l_a0"], z["qv"] = up(z["A0"][:, C - 1]), up(qv)
+            for sl in (*rings, wrap):
+                sl.round()
+    return iden, tleft
+
+
+def _cta_pairs(seed, LQ, T, qle_at=None):
+    """_pairs, with every problem's qle set to qle_at(qlen) if given."""
+    q, qlen, t, tlen, qle = _pairs(seed, LQ, T)
+    if qle_at is not None:
+        qle = np.array([qle_at(int(m)) for m in qlen], np.int32)
+    return q, qlen, t, tlen, qle
+
+
+# (C, LQ, T, G): one tile, tiles = warps, tiles wrapping round the warps
+# (one warp; two warps; three tiles over two), qlen or tlen of 1 (the
+# first problems of _pairs), qle 0, qlen, qlen + 1 and random
+@pytest.mark.parametrize("with_tl", [False, True], ids=["iden_only", "tleft"])
+@pytest.mark.parametrize("C,LQ,T,G", [(2, 20, 64, 1), (1, 40, 96, 3),
+                                      (1, 40, 96, 1), (1, 23, 128, 2),
+                                      (2, 70, 200, 2), (1, 9, 100, 4)])
+@pytest.mark.parametrize("qle_at", [None, lambda m: 0, lambda m: m,
+                                    lambda m: m + 1],
+                         ids=["qle_random", "qle_0", "qle_qlen",
+                              "qle_qlen1"])
+def test_wf_global_cta_schedule_matches_plain(C, LQ, T, G, with_tl, qle_at):
+    q, qlen, t, tlen, qle = _cta_pairs(C * 100 + T + G, LQ, T, qle_at)
+    got = wf_global_cta_model(q, qlen, t, tlen, qle, C, G, with_tl)
+    want = TW.global_plain(*map(torch.from_numpy, (q, qlen, t, tlen, qle)),
+                           TW.DEFAULT_SCORES, with_tl)
+    np.testing.assert_array_equal(got[0], want[0].numpy())
+    np.testing.assert_array_equal(got[1], want[1].numpy())
+
+
+def test_wf_global_cta_schedule_matches_jax(monkeypatch):
+    monkeypatch.setattr(WF, "INTERPRET", True)
+    monkeypatch.setattr(WF, "_TILE_CELLS", 1024)   # tile_b -> 8 rows
+    q, qlen, t, tlen, qle = _pairs(13, 16, 96)
+    for with_tl in (False, True):
+        for G in (1, 2):                           # wrapping, and not
+            got = wf_global_cta_model(q, qlen, t, tlen, qle, 1, G, with_tl)
+            jiden, jtl = WF.global_batch(q, qlen, t, tlen, qle,
+                                         iden_only=not with_tl)
+            np.testing.assert_array_equal(got[0], np.asarray(jiden))
+            np.testing.assert_array_equal(got[1], np.asarray(jtl))
+
+
+@pytest.mark.parametrize("short", [1, 2])
+def test_wf_global_cta_model_catches_a_short_skew(monkeypatch, short):
+    """With one round of skew less (the smallest fault: 2 x 16 steps < 16 +
+    31, so a ring row is read in the round that writes it) or two, warp
+    g + 1 reads a ring row its left neighbour has not written yet: the
+    model's slot check fails."""
+    S, SKEW, RB = _cta_consts()
+    monkeypatch.setattr(__import__(__name__), "_cta_consts",
+                        lambda: (S, SKEW - short, RB))
+    q, qlen, t, tlen, qle = _pairs(5, 40, 96)
+    with pytest.raises(AssertionError):
+        wf_global_cta_model(q, qlen, t, tlen, qle, 1, 3, False)
+
+
 # ------------------------------------------------------------------ K4 --
-
-
-def _shift_right(x):
-    """x[e] <- x[e + 1] across [B, 32, L] (shfl_down for the last)."""
-    nxt = np.concatenate([x[:, 1:, 0], x[:, -1:, 0]], axis=1)
-    return np.concatenate([x[:, :, 1:], nxt[:, :, None]], axis=2)
-
-
-def _shift_left(x):
-    """x[e] <- x[e - 1] across [B, 32, L] (shfl_up for the first)."""
-    prv = np.concatenate([x[:, :1, -1], x[:, :-1, -1]], axis=1)
-    return np.concatenate([prv[:, :, None], x[:, :, :-1]], axis=2)
 
 
 def _dp_cells(r, base, W, T, unit, qlen, ncol, sub, wl, wdel, wl2, wdel2,
@@ -235,7 +439,7 @@ def _dp_cells(r, base, W, T, unit, qlen, ncol, sub, wl, wdel, wl2, wdel2,
     """Row r of the band window [base, base + W) from row r's views of
     rows r-1 and r-2 ([nb, W] each): (direction bytes with dead lanes 0,
     new H, E1, E2, F1, F2, G), the cell arithmetic of csrc/profile_dp.cu's
-    warp and band kernels."""
+    band kernel."""
     oi, ei, od, oi2, ei2, od2 = (int(c) for c in costs)
     nb = wl.shape[0]
     wb = W - 8
@@ -294,36 +498,6 @@ def _dp_cells(r, base, W, T, unit, qlen, ncol, sub, wl, wdel, wl2, wdel2,
          | (fsel2 << 5) | (icont2 << 6) | (fcont2 << 7))
     return (np.where(live, d, 0).astype(np.uint8), np.maximum(nG, F), nE1,
             nE2, nF1, nF2, nG)
-
-
-def profile_dp_model(unit, qlen, ncol, sub, wl, wdel, wl2, wdel2, costs, W):
-    """Direction plane [2T-1, B, W] by profile_dp_warp's register window:
-    lane k holds band lanes [k L, k L + L), L = W / 32; per row the state
-    of row r-1 shifts right by one when band_base steps (the view at t),
-    else rows r-1 and r-2 shift left by one (the view at t-1)."""
-    nb, T = wl.shape
-    L = W // LANES
-    nrows = qlen.astype(np.int64) + ncol - 1
-    dirs = np.zeros((2 * T - 1, nb, W), np.uint8)
-    neg = np.full((nb, LANES, L), TMD.NEG, np.int64)
-    H1, H2, E1, E2, F1, F2, G = (neg.copy() for _ in range(7))
-
-    prev = 0
-    for r in range(int(nrows.max())):
-        base = TMD.band_base(r, T, W)
-        if base != prev:
-            H1, E1, E2 = map(_shift_right, (H1, E1, E2))
-        else:
-            G, F1, F2, H2 = map(_shift_left, (G, F1, F2, H2))
-        prev = base
-        flat = [x.reshape(nb, W) for x in (H1, H2, E1, E2, F1, F2, G)]
-        d, *new = _dp_cells(r, base, W, T, unit, qlen, ncol, sub, wl, wdel,
-                            wl2, wdel2, costs, *flat)
-        H2 = H1
-        H1, E1, E2, F1, F2, G = (x.reshape(nb, LANES, L) for x in new)
-        written = r < nrows
-        dirs[r, written] = d[written]
-    return dirs
 
 
 def _warp_shift(x, step, edge):
@@ -432,25 +606,6 @@ def _live(dirs, qlen, ncol, b):
     return dirs[:qlen[b] + ncol[b] - 1, b]
 
 
-@pytest.mark.parametrize("T,W", [(96, 32), (96, 64), (160, 64)])
-def test_profile_dp_window_matches_plain(T, W):
-    # full-length pairs reach the T - W clamp of band_base; short and
-    # uneven ones stay left of it
-    lens = [(T, T), (T - 3, T), (T, T - 5), (1, T // 2), (T // 2, 1),
-            (T // 3, T // 3 + 4), (T - 1, T - 9), (7, 9)]
-    unit, qlen, ncol, sub, wl, wdel, wl2, wdel2, costs, _, _ = \
-        _round_inputs(T + W, T, lens)
-    assert max(qlen + ncol) - 2 >= 2 * (T - W) + W - 8 + 4   # clamp reached
-    got = profile_dp_model(unit, qlen, ncol, sub, wl, wdel, wl2, wdel2,
-                           costs, W)
-    want = TMD.profile_dp_plain(
-        *map(torch.from_numpy, (unit, qlen, ncol, sub, wl, wdel, wl2,
-                                wdel2)), costs, W).numpy()
-    for b in range(B):
-        np.testing.assert_array_equal(_live(got, qlen, ncol, b),
-                                      _live(want, qlen, ncol, b))
-
-
 def _jax_dirs(T, W, unit, qlen, ncol, unit0, len0):
     """The JAX package's direction plane for the round _round_inputs made
     (its Pallas kernel; the caller sets interpret mode)."""
@@ -469,23 +624,6 @@ def _jax_dirs(T, W, unit, qlen, ncol, unit0, len0):
     return jsub, np.asarray(run_dp(maxr, qbuf, jsub, jwl, jwdel, jwl2,
                                    jwdel2, jq.reshape(-1, 1),
                                    jcol.reshape(-1, 1)))
-
-
-def test_profile_dp_window_matches_jax(monkeypatch):
-    monkeypatch.setattr(MD, "INTERPRET", True)
-    monkeypatch.setattr(MD, "_B_CAP", B)
-    T, W = 256, 128
-    lens = [(200, 190), (180, 185), (250, 256), (1, 120), (140, 150),
-            (90, 60), (230, 240), (256, 256)]
-    (unit, qlen, ncol, sub, wl, wdel, wl2, wdel2, costs, unit0,
-     len0) = _round_inputs(5, T, lens)
-    got = profile_dp_model(unit, qlen, ncol, sub, wl, wdel, wl2, wdel2,
-                           costs, W)
-    jsub, jdirs = _jax_dirs(T, W, unit, qlen, ncol, unit0, len0)
-    np.testing.assert_array_equal(np.asarray(jsub), sub)
-    for b in range(B):
-        np.testing.assert_array_equal(_live(got, qlen, ncol, b),
-                                      _live(jdirs, qlen, ncol, b))
 
 
 @pytest.mark.parametrize("T,W", [(96, 64), (160, 64), (160, 96),

@@ -181,18 +181,16 @@ def test_device_msa_defaults_to_the_card():
 
 
 def test_dp_route_by_shape():
-    """profile_dp's kernel by shape: the band kernel on the 4096 bucket's
-    band rungs, the warp kernel on the rungs below, the strips at full
-    width and on any other W."""
-    for T in TMD.BUCKETS:
-        for W in TMD.BAND_WIDTHS:
-            want = "band" if T == 4096 else "warp"
-            assert TMD.dp_route(T, W) == want, (T, W)
-        assert TMD.dp_route(T, None) == "strips"
-        assert TMD.dp_route(T, 136) == "strips"
+    """profile_dp's kernel by band width: the band kernel on the band
+    rungs (every bucket's), the strips at full width and on any other W."""
+    for W in TMD.BAND_WIDTHS:
+        assert TMD.dp_route(W) == "band", W
+    assert TMD.dp_route(None) == "strips"
+    assert TMD.dp_route(136) == "strips"
+    assert TMD.DP_ROUTES == ("strips", "band")
 
 
-@pytest.mark.parametrize("kernel", [None, "first", "strips", "warp", "band"])
+@pytest.mark.parametrize("kernel", [None, "first", "strips", "band"])
 def test_profile_dp_kernel_option_on_the_cpu(kernel):
     """Every kernel a caller may name runs the plain version on a CPU
     tensor and gives its plane; a kernel the shape lacks, or an unknown
@@ -213,7 +211,7 @@ def test_profile_dp_kernel_option_on_the_cpu(kernel):
     want = TMD.profile_dp_plain(*args, W)
     got = TMD.profile_dp(*args, W=W, kernel=kernel)
     assert torch.equal(got, want)
-    if kernel in ("warp", "band"):
+    if kernel == "band":
         with pytest.raises(ValueError):
             TMD.profile_dp(*args, W=136, kernel=kernel)
     with pytest.raises(ValueError):

@@ -172,6 +172,9 @@ def host_call(name: str, argtypes: list, restype, *args):
 # csrc/wavefront.cu
 WF_GLOBAL = Kernel("wf_global", [P, I, P, I, P, P, P, I, I, I, I, I, I,
                                  P, P, P])
+# a route's kernel at any shape (the CTA kernel at any geometry): the
+# yardsticks the routes are timed by
+WF_GLOBAL_ON = Kernel("wf_global_on", [I, I, I, *WF_GLOBAL.argtypes])
 WF_EXT = Kernel("wf_ext", [P, I, P, I, P, P, I, I, I, I, I, I, P])
 # csrc/profile_dp.cu
 PROFILE_DP = Kernel("profile_dp", [P, I, P, P, P, P, P, P, P, I, I, I,
@@ -194,7 +197,7 @@ CHAIN_DP = Kernel("chain_dp", [P, P, P, I, I, I, I, P, P, P])
 # csrc/dtype_micro.cu
 DTYPE_MICRO = Kernel("dtype_micro", [P, P, P, P, P, I, I, I])
 
-KERNELS = (WF_GLOBAL, WF_EXT, PROFILE_DP, PROFILE_DP_FIRST,
+KERNELS = (WF_GLOBAL, WF_GLOBAL_ON, WF_EXT, PROFILE_DP, PROFILE_DP_FIRST,
            PROFILE_DP_ON, PROFILE_BT,
            WF_DTYPE_PROBE, MYERS_HW, SEED_HITS, CHAIN_DP, DTYPE_MICRO)
 

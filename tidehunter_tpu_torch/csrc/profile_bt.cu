@@ -51,8 +51,8 @@
 // end.  The boundary steps (j == 0 or c == 0) read nothing;
 // the warp writes them together after the walk.
 //
-// Not fused into the DP: two DP kernels write the plane (profile_dp_warp
-// and profile_dp_kernel), and at 84 MB a launch the plane leaves the SM
+// Not fused into the DP: three DP kernels write the plane (the band
+// kernel, the strips and the first version), and at 84 MB a launch the plane leaves the SM
 // and the L2 whichever kernel reads it back.  A 5 x 256-byte transition
 // table in shared memory in place of the mode machine's logic measured
 // slower at every checked shape (PERF.md) and is not used.

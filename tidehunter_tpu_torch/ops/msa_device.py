@@ -104,19 +104,18 @@ def state_to_numpy(state: MSAState) -> Tuple[np.ndarray, ...]:
 # ------------------------------------------------------------- kernels --
 
 
-# profile_dp's kernels by shape, as csrc/profile_dp.cu's dp_route picks
-# them (its host query profile_dp_route answers with these indices)
-DP_ROUTES = ("strips", "warp", "band")
-BAND_WIDTHS = (128, 256, 512)   # the warp and band kernels' W
+# profile_dp's kernels, indices of csrc/profile_dp.cu's routes (its host
+# query profile_dp_route answers with them; profile_dp_on runs either)
+DP_ROUTES = ("strips", "band")
+BAND_WIDTHS = (128, 256, 512)   # the band kernel's W
 
 
-def dp_route(T: int, W: Optional[int]) -> str:
-    """The kernel profile_dp launches at (T, W): the band kernel on the
-    band rungs (BAND_WIDTHS) of the 4096 bucket, the warp kernel on those
-    below it, the strips at full width and on every other W."""
-    if W in BAND_WIDTHS:
-        return "band" if T == BUCKETS[-1] else "warp"
-    return "strips"
+def dp_route(W: Optional[int]) -> str:
+    """The kernel profile_dp launches at band width W (None: full width):
+    the band kernel on the band rungs (BAND_WIDTHS) of every bucket, the
+    strips at full width and on every other W (csrc/profile_dp.cu:
+    dp_route)."""
+    return "band" if W in BAND_WIDTHS else "strips"
 
 
 def profile_dp(unit, qlen, ncol, sub, wl, wdel, wl2, wdel2, costs,
@@ -129,18 +128,16 @@ def profile_dp(unit, qlen, ncol, sub, wl, wdel, wl2, wdel2, costs,
     unit [B, LQ] uint8 (LQ >= qlen), sub [B, 5, T], wl/wdel/wl2/wdel2
     [B, T] and qlen/ncol [B] int32; costs = (oi, ei, od, oi2, ei2, od2).
 
-    On the card (csrc/profile_dp.cu) the kernel is dp_route(T, W)'s: the
-    band rungs W = 128/256/512 below the 4096 bucket take
-    profile_dp_warp (a warp a region, the window in registers), and in
-    the 4096 bucket profile_dp_band (a CTA a region, one band lane a
-    thread over W / 32 warps, the profile in shared memory); full width
-    at every T and any other W take profile_dp_strip (warps own strips of
-    32 x L columns, over one CTA or a cluster of up to 8; L = 4 up to T =
-    128, else 2).  Each launch counts on K.PROFILE_DP under its route.
-    kernel "first" runs profile_dp_kernel, the first port, and a name of
-    DP_ROUTES that route's kernel (the warp and band kernels at W in
-    BAND_WIDTHS), at any shape: the yardsticks chip_smoke.py times the
-    routes against."""
+    On the card (csrc/profile_dp.cu) the kernel is dp_route(W)'s: the
+    band rungs W = 128/256/512 of every bucket take profile_dp_band (a CTA
+    a region, one band lane a thread over W / 32 warps, the profile in
+    shared memory); full width at every T and any other W take
+    profile_dp_strip (warps own strips of 32 x L columns, over one CTA or
+    a cluster of up to 8; L = 4 up to T = 128, else 2).  Each launch
+    counts on K.PROFILE_DP under its route.  kernel "first" runs
+    profile_dp_kernel, the first port, and a name of DP_ROUTES that
+    route's kernel (the band kernel at W in BAND_WIDTHS), at any shape:
+    the yardsticks chip_smoke.py times the routes against."""
     B, LQ = unit.shape
     T = sub.shape[2]
     if unit.dtype != torch.uint8:
@@ -155,7 +152,7 @@ def profile_dp(unit, qlen, ncol, sub, wl, wdel, wl2, wdel2, costs,
         raise ValueError(f"band window {W} must lie in (8, T={T})")
     if kernel not in (None, "first", *DP_ROUTES):
         raise ValueError(f"unknown profile_dp kernel {kernel!r}")
-    if kernel in ("warp", "band") and W not in BAND_WIDTHS:
+    if kernel == "band" and W not in BAND_WIDTHS:
         raise ValueError(f"the {kernel} kernel takes W in {BAND_WIDTHS}")
     if unit.device.type == "cpu":
         return profile_dp_plain(unit, qlen, ncol, sub, wl, wdel, wl2,
@@ -174,7 +171,7 @@ def profile_dp(unit, qlen, ncol, sub, wl, wdel, wl2, wdel2, costs,
     ptrs = (args[0].data_ptr(), LQ, *(a.data_ptr() for a in args[1:]), B,
             T, W or 0, *(int(c) for c in costs), dirs.data_ptr())
     if kernel is None:
-        K.PROFILE_DP(unit.device, *ptrs, route=dp_route(T, W))
+        K.PROFILE_DP(unit.device, *ptrs, route=dp_route(W))
     elif kernel == "first":
         K.PROFILE_DP_FIRST(unit.device, *ptrs)
     else:

@@ -4,7 +4,9 @@ Counterpart of ``tidehunter_tpu/ops/wavefront.py``: the same
 ``global_batch`` and ``ext_batch`` outputs, bit-identical with the NumPy
 oracle ``ops/ksw2.py``.  On a CUDA tensor each call launches
 one hand-written kernel (``csrc/wavefront.cu``: ``wf_global``, one warp
-per problem walking column strips; ``wf_ext``, one CTA per problem over
+per problem walking column strips, or for few problems wider than one
+tile one CTA (or cluster) per problem, a warp a tile, skewed
+(``global_route``); ``wf_ext``, one CTA per problem over
 anti-diagonals with its state in registers and the tie order in its
 epilogue); on a CPU tensor it runs the plain PyTorch version in
 this module, a loop over anti-diagonals of ``[B, T]`` tensor ops.  A
@@ -24,7 +26,7 @@ device.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -41,10 +43,25 @@ MAX_T = 8192                  # the tl + 1 field holds targets up to this
 # Shared memory a CTA may take on Hopper; wf_global's edge columns that do
 # not fit go to a global scratch instead (csrc/wavefront.cu).
 SMEM_LIMIT = 227 * 1024
-# wf_global: problems (warps) per CTA and the widest single column tile
-# (32 lanes x 16 columns); wider targets carry an int4 edge column of LQ
-# rows per problem from tile to tile (csrc/wavefront.cu: WARPS, C).
+# wf_global: problems (warps) per CTA of the warp kernel and the widest
+# single column tile (32 lanes x 16 columns); wider targets carry an int4
+# edge column of LQ rows per problem from tile to tile (csrc/wavefront.cu:
+# WARPS, C).
 GLOBAL_WARPS, GLOBAL_TILE = 4, 512
+# wf_global's kernels, as csrc/wavefront.cu's global_route picks them (its
+# host query wf_global_route answers with these indices): the warp kernel
+# (a warp a problem, WARPS a CTA) and the CTA kernel (a CTA or a cluster
+# a problem, a warp a column tile, warps skewed by rounds of steps)
+GLOBAL_ROUTES = ("warp", "cta")
+# global_route's terms (csrc/wavefront.cu): the steps a CTA kernel's warp
+# trails the one on its left (CTA_SKEW x CTA_S), and the launch size, in
+# problems an SM per (tiles - 1)^2, below which the CTA kernel runs
+# (measured on the H100 by chip_smoke.py --kernels wf_global's route sweep)
+CTA_SKEW_STEPS, CTA_CROSS = 48, 2.5
+# the CTA kernel's geometry and shared memory (csrc/wavefront.cu:
+# cta_shape, cta_smem): rows of a warp's edge ring, the most threads a CTA,
+# CTAs a problem and warps a CTA of a problem spread over a cluster
+CTA_RB, CTA_THREADS, CTA_CLUSTER, CTA_SPREAD = 64, 256, 8, 4
 # wf_ext: target lanes a thread owns, by target bucket, when a launch has
 # at most one problem per SM (each CTA has an SM to itself: the fewest
 # lanes a thread, the shortest chain a row) and when it has more (the
@@ -86,9 +103,51 @@ def _check_mesh(mesh, q):
                          f"{q.device}")
 
 
+def global_tile(T: int) -> int:
+    """Columns of wf_global's column tile at target bucket T: 32 lanes of
+    4, 8 or 16 columns, the narrowest covering T (csrc/wavefront.cu:
+    global_cols)."""
+    return 32 * (4 if T <= 128 else 8 if T <= 256 else 16)
+
+
+def cta_shape(B: int, T: int, sms: int) -> Tuple[int, int]:
+    """(warps a CTA, CTAs a problem) of wf_global's CTA kernel for B
+    problems at bucket T (csrc/wavefront.cu: cta_shape): a warp a tile, at
+    most CTA_THREADS / 32; a cluster of up to CTA_CLUSTER CTAs of at most
+    CTA_SPREAD warps when the launch has fewer problems than SMs."""
+    nt = -(-T // global_tile(T))
+    cl = min(CTA_CLUSTER, -(-nt // CTA_SPREAD)) if B < sms else 1
+    return min(-(-nt // cl), CTA_THREADS // 32), cl
+
+
+def cta_smem(LQ: int, T: int, nw: int, cl: int) -> int:
+    """Bytes of shared memory a CTA of the CTA kernel takes: nw edge rings
+    of CTA_RB int4 rows, a wrap column of LQ int4 rows when the tiles
+    outnumber the nw * cl warps, the query (csrc/wavefront.cu: cta_smem)."""
+    wraps = -(-T // global_tile(T)) > nw * cl
+    return nw * CTA_RB * 16 + (16 * LQ if wraps else 0) + LQ
+
+
+def global_route(B: int, LQ: int, T: int, sms: int) -> str:
+    """The kernel wf_global launches for B problems of (LQ, T) on a card of
+    `sms` SMs (csrc/wavefront.cu: global_route): the CTA kernel where the
+    target spans nt > 1 tiles, the query outlasts the CTA kernel's skew of
+    CTA_SKEW_STEPS between tiles, its CTA's shared memory fits in
+    SMEM_LIMIT and the launch has fewer than CTA_CROSS (nt - 1)^2 problems
+    an SM, else the warp kernel (any LQ: its edge columns go to a global
+    scratch past SMEM_LIMIT)."""
+    nt = -(-T // global_tile(T))
+    if nt < 2 or LQ + 31 <= CTA_SKEW_STEPS:
+        return "warp"
+    if cta_smem(LQ, T, *cta_shape(B, T, sms)) > SMEM_LIMIT:
+        return "warp"
+    return "cta" if B < CTA_CROSS * (nt - 1) ** 2 * sms else "warp"
+
+
 def _edge_scratch(B: int, LQ: int, T: int, device):
-    """None when wf_global needs no edge column (one tile) or a CTA's
-    GLOBAL_WARPS of them fit in shared memory, else B * LQ int4."""
+    """None when wf_global's warp kernel needs no edge column (one tile)
+    or a CTA's GLOBAL_WARPS of them fit in shared memory, else B * LQ
+    int4."""
     if T <= GLOBAL_TILE or GLOBAL_WARPS * LQ * 16 <= SMEM_LIMIT:
         return None
     return torch.empty(B * LQ * 4, dtype=torch.int32, device=device)
@@ -99,7 +158,7 @@ def _ptr(x) -> int:
 
 
 def global_batch(q, qlen, t, tlen, qle, scores=DEFAULT_SCORES,
-                 iden_only=False, mesh=None
+                 iden_only=False, mesh=None, kernel: Optional[str] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(iden_n, t_left_ext) per problem of a padded batch.
 
@@ -107,17 +166,22 @@ def global_batch(q, qlen, t, tlen, qle, scores=DEFAULT_SCORES,
     count alone (t_left returned as zeros) — for callers that never read
     t_left (aveMatch).  mesh: a parallel.mesh.Mesh of the tensors' device
     type (anything else raises), over whose devices the rows are split
-    (parallel/mesh.shard_rows); the results come back on its first."""
+    (parallel/mesh.shard_rows); the results come back on its first.
+    On the card the kernel is global_route's; kernel "warp" or "cta"
+    runs that route's kernel at any shape it takes (launched through
+    wf_global_on): the yardsticks chip_smoke.py times the routes by."""
     _check(q, qlen, t, tlen, qle)
     _check_mesh(mesh, q)
+    if kernel not in (None, *GLOBAL_ROUTES):
+        raise ValueError(f"unknown wf_global kernel {kernel!r}")
     if mesh is not None:
         return PM.shard_rows(
-            lambda *rows: _global_one(*rows, scores, iden_only), mesh,
-            q, qlen, t, tlen, qle)
-    return _global_one(q, qlen, t, tlen, qle, scores, iden_only)
+            lambda *rows: _global_one(*rows, scores, iden_only, kernel),
+            mesh, q, qlen, t, tlen, qle)
+    return _global_one(q, qlen, t, tlen, qle, scores, iden_only, kernel)
 
 
-def _global_one(q, qlen, t, tlen, qle, scores, iden_only):
+def _global_one(q, qlen, t, tlen, qle, scores, iden_only, kernel=None):
     if q.device.type == "cpu":
         return global_plain(q, qlen, t, tlen, qle, scores, not iden_only)
     if q.device.type != "cuda":
@@ -129,12 +193,19 @@ def _global_one(q, qlen, t, tlen, qle, scores, iden_only):
     tleft = torch.empty(B, dtype=torch.int32, device=q.device)
     if not B:
         return iden, tleft
-    scratch = _edge_scratch(B, LQ, T, q.device)
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    route = kernel or global_route(B, LQ, T, sms)
+    scratch = (_edge_scratch(B, LQ, T, q.device) if route == "warp"
+               else None)
     m, x, go, ge = (int(s) for s in scores)
-    K.WF_GLOBAL(q.device, q.data_ptr(), LQ, t.data_ptr(), T,
-                qlen.data_ptr(), tlen.data_ptr(), qle.data_ptr(), B, m, x,
-                go, ge, int(iden_only), iden.data_ptr(), tleft.data_ptr(),
-                _ptr(scratch))
+    args = (q.data_ptr(), LQ, t.data_ptr(), T, qlen.data_ptr(),
+            tlen.data_ptr(), qle.data_ptr(), B, m, x, go, ge,
+            int(iden_only), iden.data_ptr(), tleft.data_ptr(),
+            _ptr(scratch))
+    if kernel is None:
+        K.WF_GLOBAL(q.device, *args, route=route)
+    else:   # the launcher's own geometry
+        K.WF_GLOBAL_ON(q.device, GLOBAL_ROUTES.index(kernel), 0, 0, *args)
     return iden, tleft
 
 
